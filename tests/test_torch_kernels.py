@@ -1,0 +1,108 @@
+"""The CUDA kernels' wrappers: on a CPU tensor they take the plain version;
+on the card they launch the kernel (compared with the plain version there).
+The card tests carry the ``cuda`` marker and skip where
+``torch.cuda.is_available()`` is False; on a machine with a card (and no JAX)
+run them with ``python -m pytest tests/test_torch_kernels.py --noconftest``."""
+
+import numpy as np
+import pytest
+import torch
+
+from gnnkeras_tpu_torch import kernels
+from gnnkeras_tpu_torch.ops import fused, strip
+
+# one thread: the CPU wrapper tests compare bit for bit, and a multi-threaded
+# BLAS may split a product differently from one call to the next
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _strip_inputs(storage, t=5, d=16, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(d, t * 128, generator=g)
+    m = (torch.rand(t, 128, 128, generator=g) < 0.05)
+    if storage == "int8":
+        return x, m.to(torch.int8), torch.rand(t, 128, generator=g)
+    w = m * torch.rand(t, 128, 128, generator=g)
+    return x, w.to(getattr(torch, storage)), None
+
+
+def _fused_inputs(t=4, d=14, d_pad=16, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    s0 = torch.zeros(d_pad, t * 128)
+    s0[:d] = torch.randn(d, t * 128, generator=g)
+    c = torch.zeros(d_pad, t * 128)
+    c[:d] = 0.3 * torch.randn(d, t * 128, generator=g)
+    # Weights scaled by 1/sqrt(d), and block columns summing to about 1 as
+    # average aggregation's 1/indeg weights do, keep the 5-iteration map from
+    # growing the state: grown to hundreds (d = 22 or 30 with unscaled
+    # inputs), f32 alone departs from f64 by more than the tolerance.
+    w = lambda: 0.25 * (14 / d) ** 0.5 * torch.randn(d, d, generator=g)
+    blocks = 0.3 * (torch.rand(t, 128, 128, generator=g) < 0.05) * torch.rand(t, 128, 128, generator=g)
+    blocks = blocks.to(torch.bfloat16)
+    return s0, c, w(), w(), fused.FusedDiagOperator(blocks=blocks, tile=128)
+
+
+@pytest.mark.parametrize("storage", ["int8", "float32", "bfloat16"])
+def test_strip_cpu_wrapper_takes_plain_version(storage):
+    x, m, s = _strip_inputs(storage)
+    before = dict(kernels.LAUNCHES)
+    torch.testing.assert_close(strip.strip_matmul(x, m, s), strip._strip_matmul_plain(x, m, s), rtol=0, atol=0)
+    assert kernels.LAUNCHES == before
+
+
+def test_fused_cpu_wrapper_takes_plain_version():
+    s0, c, ws, wa, op = _fused_inputs()
+    before = dict(kernels.LAUNCHES)
+    got = fused.fused_unfold_t(s0, c, ws, wa, op, 5, "selu")
+    pad = lambda w: torch.nn.functional.pad(w.T, (0, 2, 0, 2))
+    want = fused._fused_unfold_t_plain(s0, c, pad(ws), pad(wa), op.blocks, 5, "selu")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert kernels.LAUNCHES == before
+
+
+def test_sources_and_build_paths():
+    for name in kernels.SOURCES:
+        path = kernels.library_path(name)
+        assert path.startswith(kernels.BUILD_DIR) and path.endswith(".so")
+    assert set(kernels.LAUNCHES) == {"strip_matmul", "fused_unfold_t"}
+
+
+# Every width each kernel is built for: the strip kernel's 8-row and 16-row
+# chunks, and the fused kernel's four instances (24 and 32 need more than
+# 48 KiB of shared memory).  The flagship runs d_pad 16.
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["int8", "float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 48])
+def test_strip_kernel_matches_plain_on_card(cuda, d, storage):
+    x, m, s = (None if a is None else a.to(cuda) for a in _strip_inputs(storage, t=40, d=d, seed=d))
+    before = kernels.LAUNCHES["strip_matmul"]
+    got = strip.strip_matmul(x, m, s)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["strip_matmul"] == before + 1
+    # f32 sums of the same terms in another order
+    torch.testing.assert_close(got, strip._strip_matmul_plain(x, m, s), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ["selu", "relu", "tanh", "sigmoid", "linear"])
+@pytest.mark.parametrize("d_pad", [8, 16, 24, 32])
+def test_fused_kernel_matches_plain_on_card(cuda, d_pad, activation):
+    s0, c, ws, wa, op = _fused_inputs(t=20, d=d_pad - 2, d_pad=d_pad, seed=d_pad)
+    s0, c, ws, wa, op = s0.to(cuda), c.to(cuda), ws.to(cuda), wa.to(cuda), op.to(cuda)
+    pad = lambda w: torch.nn.functional.pad(w.T, (0, 2, 0, 2))
+    want = fused._fused_unfold_t_plain(s0, c, pad(ws), pad(wa), op.blocks, 5, activation)
+    before = kernels.LAUNCHES["fused_unfold_t"]
+    for _ in range(2):  # the second launch finds the shared-memory limit already raised
+        got = fused.fused_unfold_t(s0, c, ws, wa, op, 5, activation)
+        torch.cuda.synchronize()
+        # 5 chained iterations of f32 sums in another order
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert kernels.LAUNCHES["fused_unfold_t"] == before + 2
+    assert np.isfinite(got.cpu().numpy()).all()

@@ -1,0 +1,119 @@
+"""Shared inputs for the parity tests of the PyTorch port (tests/test_torch_*.py).
+
+Every input is made with NumPy from a seed and handed to both packages; the
+port's weights are the JAX model's, copied through
+``gnnkeras_tpu_torch.convert.variables_from_jax``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import gnnkeras_tpu.graph.graph as jgraph
+import gnnkeras_tpu.models.gnn as jgnn
+import gnnkeras_tpu.models.mlp as jmlp
+import gnnkeras_tpu_torch.graph.graph as tgraph
+import gnnkeras_tpu_torch.models.gnn as tgnn
+import gnnkeras_tpu_torch.models.mlp as tmlp
+from gnnkeras_tpu_torch.convert import variables_from_jax
+
+torch.set_num_threads(1)
+
+
+def raw_molecules(n_graphs=12, seed=0, dn=14, da=3, t_dim=2, big=()):
+    """(nodes, arcs, targets) NumPy triples of 5-40-node molecules with
+    random arcs and no self loops; ``big`` adds graphs of those node counts
+    (larger than a 128-node tile when > 128) at the front."""
+    rng = np.random.default_rng(seed)
+    sizes = list(big) + [int(rng.integers(5, 40)) for _ in range(n_graphs)]
+    out = []
+    for n in sizes:
+        nodes = np.eye(dn, dtype=np.float32)[rng.integers(0, dn, n)]
+        a = int(rng.integers(n, 3 * n))
+        src, dst = rng.integers(0, n, a), rng.integers(0, n, a)
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+        if len(src) == 0:
+            src, dst = np.array([0]), np.array([1 % n])
+        arcs = np.concatenate(
+            [np.stack([src, dst], 1), np.eye(da, dtype=np.float32)[rng.integers(0, da, len(src))]], 1
+        ).astype(np.float32)
+        targets = np.eye(t_dim, dtype=np.float32)[rng.integers(0, t_dim, 1)]
+        out.append((nodes, arcs, targets))
+    return out
+
+
+def unique_pairs(raw):
+    """Keep the first arc of every (src, dst) pair: no parallel arcs, so the
+    average-aggregation operator factors into an int8 mask and a scale."""
+    res = []
+    for nodes, arcs, targets in raw:
+        _, first = np.unique(arcs[:, :2], axis=0, return_index=True)
+        res.append((nodes, arcs[np.sort(first)], targets))
+    return res
+
+
+def graphs(module, raw, focus="g", mode="average"):
+    return [module.GraphObject(nodes=n, arcs=a, targets=t, focus=focus, aggregation_mode=mode) for n, a, t in raw]
+
+
+def merged_pair(raw, focus="g", mode="average"):
+    """The merged disjoint union of ``raw`` in both packages."""
+    jm = jgraph.GraphObject.merge(graphs(jgraph, raw, focus, mode), focus=focus, aggregation_mode=mode)
+    tm = tgraph.GraphObject.merge(graphs(tgraph, raw, focus, mode), focus=focus, aggregation_mode=mode)
+    return jm, tm
+
+
+def _nets(module, dims=(14, 3, 2), focus="g"):
+    dn, da, dt = dims
+    ins, ls = module.get_inout_dims("state", dn, da, dt, focus, 0)
+    ino, lo = module.get_inout_dims("output", dn, da, dt, focus, 0)
+    net_st = module.MLP(input_dim=ins[0], layers=ls, activations="selu",
+                        kernel_initializer="lecun_normal", bias_initializer="lecun_normal")
+    net_out = module.MLP(input_dim=ino[0], layers=lo, activations="softmax",
+                         kernel_initializer="glorot_normal", bias_initializer="glorot_normal")
+    return net_st, net_out
+
+
+def perturb_bn(variables, seed):
+    """Non-trivial BatchNorm statistics and affine parameters (a freshly
+    built model has mean 0, var 1, gamma 1, beta 0)."""
+    rng = np.random.default_rng(seed)
+    for net in variables["params"]:
+        for p, s in zip(variables["params"][net], variables["state"][net]):
+            if "moving_mean" in s:
+                f = s["moving_mean"].shape[0]
+                s["moving_mean"] = jnp.asarray(rng.normal(0.0, 0.3, f).astype(np.float32))
+                s["moving_var"] = jnp.asarray(rng.uniform(0.5, 2.0, f).astype(np.float32))
+                p["gamma"] = jnp.asarray(rng.uniform(0.7, 1.3, f).astype(np.float32))
+                p["beta"] = jnp.asarray(rng.normal(0.0, 0.1, f).astype(np.float32))
+    return variables
+
+
+def flagship_pair(seed=0, threshold=0.0, max_iteration=5, node_focus=False):
+    """The flagship GNN (starter architecture, dim_state 0) in both packages
+    with the same weights; the port's model lives on the CPU."""
+    focus = "n" if node_focus else "g"
+    jcls = jgnn.GNNnodeBased if node_focus else jgnn.GNNgraphBased
+    tcls = tgnn.GNNnodeBased if node_focus else tgnn.GNNgraphBased
+    jm = jcls(*_nets(jmlp, focus=focus), 0, max_iteration, threshold)
+    jm.build(seed=seed)
+    jm.variables = perturb_bn(jm.variables, seed)
+    tm = tcls(*_nets(tmlp, focus=focus), 0, max_iteration, threshold).build(seed=seed, device="cpu")
+    tm.load_state_dict(variables_from_jax(jax.tree_util.tree_map(np.asarray, jm.variables)))
+    return jm, tm
+
+
+def np_of(x):
+    """NumPy view of a torch tensor (bf16 as its raw uint16 bits)."""
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return x.detach().cpu().numpy()
+
+
+def np_of_jax(x):
+    a = np.asarray(x)
+    if a.dtype == jnp.bfloat16:
+        return a.view(np.uint16)
+    return a
