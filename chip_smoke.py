@@ -9,7 +9,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 
 1. device and build: the card's name and power limit (nvidia-smi), then the
    CUDA kernels of ``gnnkeras_tpu_torch/csrc`` built with nvcc, all at once;
-2. kernel checks: each kernel against its plain PyTorch version on the card,
+2. kernel checks: each kernel (the strip aggregation's forward and backward,
+   the fused unfold) against its plain PyTorch version on the card,
    on the bench-scale flagship batch (the synthetic Mutagenicity-shaped batch
    of ``bench.py``: ~131k nodes, ~267k arcs, 4,337 graphs) and on a small
    ragged batch, with times from CUDA graphs replayed between CUDA events,
@@ -24,7 +25,15 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 4. flagship forward: ``GNNgraphBased.forward`` on the bench-scale
    slot-packed batch (as bench.py builds it, and a variant without parallel
    arcs so the int8 mask+scale storage applies): 5 iterations, 4 strip-kernel
-   launches each, checked against the same forward on the CPU.
+   launches each, checked against the same forward on the CPU;
+5. training: the flagship (random weights from seed 0, compiled with
+   ``adam:0.01`` and categorical cross-entropy) takes one train step on the
+   card and one on the CPU, on each bench-scale batch: loss, k, gradients,
+   moving statistics and updated parameters must agree, and the step must
+   launch the strip kernel 4 times forward and 4 times backward.  Then
+   ``fit`` takes 10 more steps on the card (every loss finite),
+   ``evaluate`` and ``predict`` run once, and 7 synchronised steps are
+   timed on the host clock.
 
 Then one JSON line listing the kernels, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``.  The full log also goes to
@@ -131,20 +140,24 @@ def fused_inputs(model, batch):
     return state0, const.contiguous(), w_state.detach(), w_agg.detach(), op.to(dev), act
 
 
-def check_strip(batch, label, timed):
+def check_strip(batch, label, timed, name="strip_matmul"):
+    """``name`` is the forward kernel ``strip_matmul`` or its backward
+    ``strip_matmul_t``; both move the same bytes."""
     import torch
-    from gnnkeras_tpu_torch.ops.strip import _strip_matmul_plain, strip_matmul
+    from gnnkeras_tpu_torch.ops import strip as S
 
+    kernel, plain = getattr(S, name), getattr(S, f"_{name}_plain")
     op = batch.strip
     dev = batch.device
     gen = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn((16, batch.num_nodes), generator=gen, device=dev)
-    got = strip_matmul(x, op.strip, op.scale)
-    want = _strip_matmul_plain(x, op.strip, op.scale)
+    with torch.no_grad():
+        got = kernel(x, op.strip, op.scale)
+        want = plain(x, op.strip, op.scale)
     torch.cuda.synchronize()
     # f32 sums of the same few terms in another order
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    res = {"phase": "kernel_check", "kernel": "strip_matmul", "batch": label,
+    res = {"phase": "kernel_check", "kernel": name, "batch": label,
            "storage": str(op.strip.dtype).replace("torch.", ""), "tiles": int(op.strip.shape[0]),
            "max_abs_diff": float((got - want).abs().max())}
     if timed:
@@ -152,17 +165,21 @@ def check_strip(batch, label, timed):
         n_bytes = op.strip.numel() * op.strip.element_size() + 2 * x.numel() * 4
         if op.scale is not None:
             n_bytes += op.scale.numel() * 4
-        res["kernel_ms"] = graph_ms([lambda: strip_matmul(x, op.strip, op.scale)])
-        copies = [(x.clone(), op.strip.clone(), None if op.scale is None else op.scale.clone())
-                  for _ in range(cold_copies(n_bytes))]
-        res["kernel_cold_ms"] = graph_ms([lambda o=o: strip_matmul(*o) for o in copies])
-        res["cold_copies"] = len(copies)
-        del copies
-        res["plain_ms"] = graph_ms([lambda: _strip_matmul_plain(x, op.strip, op.scale)])
-        dense = op.strip.float() if op.scale is None else op.strip.float() * op.scale[:, None, :]
-        tiles = x.reshape(16, -1, 128).permute(1, 0, 2).contiguous()
-        res["library_ms"] = graph_ms([lambda: torch.bmm(tiles, dense)])  # yardstick only
-        del dense
+        with torch.no_grad():
+            res["kernel_ms"] = graph_ms([lambda: kernel(x, op.strip, op.scale)])
+            copies = [(x.clone(), op.strip.clone(), None if op.scale is None else op.scale.clone())
+                      for _ in range(cold_copies(n_bytes))]
+            res["kernel_cold_ms"] = graph_ms([lambda o=o: kernel(*o) for o in copies])
+            res["cold_copies"] = len(copies)
+            del copies
+            res["plain_ms"] = graph_ms([lambda: plain(x, op.strip, op.scale)])
+            # the dense f32 operator (transposed for the backward), a yardstick only
+            dense = op.strip.float() if op.scale is None else op.strip.float() * op.scale[:, None, :]
+            if name == "strip_matmul_t":
+                dense = dense.transpose(1, 2).contiguous()
+            tiles = x.reshape(16, -1, 128).permute(1, 0, 2).contiguous()
+            res["library_ms"] = graph_ms([lambda: torch.bmm(tiles, dense)])
+            del dense
         res["bound_ms"], res["bound_by"] = bound(n_bytes, 2 * 16 * nnz)
         res["bytes"], res["nnz"] = n_bytes, nnz
     emit(res)
@@ -201,6 +218,102 @@ def check_fused(model, batch, label, timed):
         res["bytes"], res["nnz"] = n_bytes, nnz
     emit(res)
     return res
+
+
+class _Repeat:
+    """A sequencer of one batch served ``n`` times (``len``, ``[i]``,
+    ``on_epoch_end``, as ``fit`` takes it)."""
+
+    def __init__(self, batch, n):
+        self.batch, self.n = batch, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.batch
+
+    def on_epoch_end(self):
+        pass
+
+
+def train_phase(label, b_gpu, b_cpu, g, card):
+    """Phase 5 on one batch; returns the backward kernel's launches per
+    train step."""
+    import torch
+    from gnnkeras_tpu_torch import kernels
+    from gnnkeras_tpu_torch.data.synthetic import flagship_gnn
+    from gnnkeras_tpu_torch.training.trainer import train_step
+
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = flagship_gnn(dev, seed=0)
+        models[dev].compile(optimizer="adam:0.01", loss="categorical_crossentropy", metrics=["accuracy"])
+    model, model_cpu = models["cuda"], models["cpu"]
+    before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+
+    kernels.reset_launches()
+    logs, aux = train_step(model, b_gpu)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    assert launches == {"strip_matmul": 4, "strip_matmul_t": 4, "fused_unfold_t": 0}, launches
+    logs_cpu, aux_cpu = train_step(model_cpu, b_cpu)
+
+    # one step of f32 sums in other orders over ~139k nodes: the loss, the
+    # statistics and the gradients agree to rtol 1e-4; entries of a gradient
+    # below 1e-6 of its largest are held to 1e-6 of that largest
+    loss, loss_cpu = float(logs["loss_sum"] / logs["count"]), float(logs_cpu["loss_sum"] / logs_cpu["count"])
+    k, k_cpu = float(aux["k"]), float(aux_cpu["k"])
+    assert k == k_cpu == 5.0, (k, k_cpu)
+    np.testing.assert_allclose(loss, loss_cpu, rtol=1e-5)
+    params_cpu = dict(model_cpu.named_parameters())
+    excluded, worst = 0, {}
+    for n, p in model.named_parameters():
+        grad, grad_cpu = p.grad.cpu().numpy(), params_cpu[n].grad.numpy()
+        gmax = float(np.abs(grad_cpu).max())
+        np.testing.assert_allclose(grad, grad_cpu, rtol=1e-4, atol=1e-6 * gmax, err_msg=n)
+        worst[n] = float(np.abs(grad - grad_cpu).max() / max(gmax, 1e-30))
+        # Adam's first step is about lr·sign(g): compare the updated
+        # parameters where |g| is not within reach of a sign flip
+        live = np.abs(grad_cpu) >= 1e-6 * gmax
+        excluded += int((~live).sum())
+        np.testing.assert_allclose(p.detach().cpu().numpy()[live], params_cpu[n].detach().numpy()[live],
+                                   rtol=1e-5, atol=1e-6, err_msg=n)
+        assert not np.array_equal(p.detach().cpu().numpy(), before[n].numpy()), n
+    buffers_cpu = dict(model_cpu.named_buffers())
+    for n, b in model.named_buffers():
+        np.testing.assert_allclose(b.cpu().numpy(), buffers_cpu[n].numpy(), rtol=1e-5, atol=1e-6, err_msg=n)
+
+    # the user's entry points: 10 more steps through fit, then evaluate and predict
+    kernels.reset_launches()
+    history = model.fit(_Repeat(b_gpu, 1), epochs=10, verbose=0)
+    torch.cuda.synchronize()
+    fit_launches = dict(kernels.LAUNCHES)
+    assert fit_launches == {"strip_matmul": 40, "strip_matmul_t": 40, "fused_unfold_t": 0}, fit_launches
+    losses = history["loss"]
+    assert len(losses) == 10 and np.isfinite(losses).all(), losses
+    ev = model.evaluate(_Repeat(b_gpu, 1))
+    assert np.isfinite(list(ev.values())).all(), ev
+    pred = model.predict(_Repeat(b_gpu, 1))
+    assert pred.shape == (g.num_graphs, 2) and np.isfinite(pred).all()
+    np.testing.assert_allclose(pred.sum(axis=1), 1.0, rtol=1e-5)
+
+    ts = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train_step(model, b_gpu, model.next_rng())
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t)
+    dt = float(np.median(ts))
+    n_arcs = int(g.arcs.shape[0])
+    emit({"phase": "training", "batch": label, "storage": str(b_gpu.strip.strip.dtype), "k": k,
+          "first_step_loss": loss, "first_step_loss_cpu": loss_cpu, "launches_per_step": launches,
+          "grad_max_rel_diff": worst, "adam_entries_excluded": excluded, "fit_losses": losses,
+          "fit_launches": fit_launches, "evaluate": ev, "train_step_ms": dt * 1e3,
+          "train_step_ms_all": [t * 1e3 for t in ts], "train_transition_edges_per_s": 5 * n_arcs / dt,
+          "arcs": n_arcs, "card": card})
+    return launches["strip_matmul_t"]
 
 
 def main():
@@ -256,6 +369,9 @@ def main():
     strip_bf16 = check_strip(b_bench, "bench", timed=True)
     strip_int8 = check_strip(b_int8, "bench_without_parallel_arcs", timed=True)
     check_strip(b_ragged, "ragged_small", timed=False)
+    strip_t_bf16 = check_strip(b_bench, "bench", timed=True, name="strip_matmul_t")
+    strip_t_int8 = check_strip(b_int8, "bench_without_parallel_arcs", timed=True, name="strip_matmul_t")
+    check_strip(b_ragged, "ragged_small", timed=False, name="strip_matmul_t")
     fused_res = check_fused(model, b_bench, "bench", timed=True)
     check_fused(model, b_ragged_fused, "ragged_small", timed=False)
 
@@ -303,13 +419,13 @@ def main():
     for label, b_gpu, b_cpu, g in (("bench", b_bench, b_bench_cpu, bench),
                                    ("bench_without_parallel_arcs", b_int8, b_int8_cpu, bench_u)):
         kernels.reset_launches()
-        k, state, out, mask = model.forward(b_gpu, training=False)
+        k, state, out, mask, _ = model.forward(b_gpu, training=False)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         assert k == 5, k
-        assert launches == {"strip_matmul": k - 1, "fused_unfold_t": 0}, launches
+        assert launches == {"strip_matmul": k - 1, "strip_matmul_t": 0, "fused_unfold_t": 0}, launches
         forward_launches[label] = launches["strip_matmul"]
-        k_cpu, state_cpu, out_cpu, mask_cpu = model_cpu.forward(b_cpu, training=False)
+        k_cpu, state_cpu, out_cpu, mask_cpu, _ = model_cpu.forward(b_cpu, training=False)
         assert k_cpu == k
         m = mask.cpu().numpy()
         o = out.cpu().numpy()[m]
@@ -330,6 +446,12 @@ def main():
               "k": k, "strip_launches": launches["strip_matmul"], "forward_ms": dt * 1e3,
               "transition_edges_per_s": 5 * n_arcs / dt, "arcs": n_arcs, "card": card})
 
+    # -- 5. training ---------------------------------------------------------
+    train_launches = {}
+    for label, b_gpu, b_cpu, g in (("bench", b_bench, b_bench_cpu, bench),
+                                   ("bench_without_parallel_arcs", b_int8, b_int8_cpu, bench_u)):
+        train_launches[label] = train_phase(label, b_gpu, b_cpu, g, card)
+
     # -- kernels, card, verdict ----------------------------------------------
     def entry(name, source, replaces, launches, res):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -341,6 +463,10 @@ def main():
         entry("strip_matmul", strip_src, "gnnkeras_tpu/ops/strip.py:278", forward_launches["bench"], strip_bf16),
         entry("strip_matmul_int8", strip_src, "gnnkeras_tpu/ops/strip.py:278",
               forward_launches["bench_without_parallel_arcs"], strip_int8),
+        entry("strip_matmul_t", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+              train_launches["bench"], strip_t_bf16),
+        entry("strip_matmul_t_int8", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+              train_launches["bench_without_parallel_arcs"], strip_t_int8),
         entry("fused_unfold_t", "gnnkeras_tpu_torch/csrc/fused_unfold.cu", "gnnkeras_tpu/ops/fused.py:241",
               serve_launches["fused_unfold_t"], fused_res),
     ]})

@@ -36,12 +36,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # source name -> {C entry point: argtypes}
 _ENTRIES = {
-    "strip_matmul": {"gnn_strip_matmul": [_P, _P, _I, _P, _P, _I, _I, _P]},
+    "strip_matmul": {
+        "gnn_strip_matmul": [_P, _P, _I, _P, _P, _I, _I, _P],
+        "gnn_strip_matmul_t": [_P, _P, _I, _P, _P, _I, _I, _P],
+    },
     "fused_unfold": {"gnn_fused_unfold_t": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
 }
 SOURCES = tuple(_ENTRIES)
 
-LAUNCHES: Dict[str, int] = {"strip_matmul": 0, "fused_unfold_t": 0}
+LAUNCHES: Dict[str, int] = {"strip_matmul": 0, "strip_matmul_t": 0, "fused_unfold_t": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

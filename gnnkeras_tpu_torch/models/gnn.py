@@ -1,22 +1,32 @@
 """Homogeneous GNN models: the iterate-to-convergence unfolding engine,
-inference direction, counterpart of ``gnnkeras_tpu.models.gnn``.
+counterpart of ``gnnkeras_tpu.models.gnn``.
 
-The unfolding is a Python ``while`` loop with the reference's early exit:
-run while some real node's state moved more than ``threshold·‖old‖₂`` and
-``k < max_iteration``.  Iteration 0 is peeled from the batch's
-host-precomputed ``Adjᵀ·labels`` when the state is the node label
-(``dim_state == 0``), so a forward of k iterations aggregates k − 1 times.
+One unfolding loop, two modes (``run_unfold_loops``):
+
+- inference: a Python ``while`` loop with the reference's early exit, run
+  while some real node's state moved more than ``threshold·‖old‖₂`` and
+  ``k < max_iteration`` (one host read of the flag per iteration);
+- training: exactly ``max_iteration`` steps with a device-side ``running``
+  flag, ``state ← where(running, new, state)``, the state net's moving
+  BatchNorm statistics carried step to step and kept only while running,
+  and ``k`` (a device float) counting the running steps.  The flag is never
+  read on the host inside the loop; autograd differentiates through the
+  steps (activations are stored, no rematerialisation).
+
+Iteration 0 is peeled from the batch's host-precomputed ``Adjᵀ·labels``
+when the state is the node label (``dim_state == 0``), so a forward of k
+iterations aggregates k − 1 times.
 
 Two engines, picked per batch as in the JAX package (``_use_transposed``):
 row-major (N, d) state through ``GraphBatch.aggregate``, and feature-major
 (d_pad, N) state through the slot-128 strip kernel (``ops/strip.py``) or the
-dense-block BCSR.  ``dim_state > 0``, training-mode loops, per-iteration
-BatchNorm and the LGNN/composite models come with later slices.
+dense-block BCSR.  ``dim_state > 0``, per-iteration BatchNorm, the arc focus
+and the LGNN/composite models come with later slices.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,9 +42,11 @@ from gnnkeras_tpu_torch.ops.segment import aggregate_edges
 _TRANSPOSED_BCSR_MAX_STATE_DIM = 32
 
 
-def unconverged(state, state_old, node_mask, threshold: float, feature_axis: int = 1) -> bool:
-    """True while any real node moved more than ``threshold·‖old‖₂``.
-    ``feature_axis=0`` is feature-major (d_pad, N) state."""
+def unconverged_flag(state, state_old, node_mask, threshold: float, feature_axis: int = 1) -> torch.Tensor:
+    """0-dim bool tensor: does any real node move more than
+    ``threshold·‖old‖₂``?  ``feature_axis=0`` is feature-major (d_pad, N)
+    state.  Stays on the device; carries no gradient."""
+    state, state_old = state.detach(), state_old.detach()
     if threshold == 0.0:
         # ‖s − s_old‖₂ > 0 ⟺ some element changed
         changed = torch.any(state != state_old, dim=feature_axis)
@@ -42,7 +54,12 @@ def unconverged(state, state_old, node_mask, threshold: float, feature_axis: int
         distance = torch.sqrt(torch.sum(torch.square(state - state_old), dim=feature_axis))
         norm = torch.sqrt(torch.sum(torch.square(state_old), dim=feature_axis))
         changed = distance > threshold * norm
-    return bool(torch.any(changed & node_mask))
+    return torch.any(changed & node_mask)
+
+
+def unconverged(state, state_old, node_mask, threshold: float, feature_axis: int = 1) -> bool:
+    """``unconverged_flag`` read on the host."""
+    return bool(unconverged_flag(state, state_old, node_mask, threshold, feature_axis))
 
 
 def aggregate_t(state_t: torch.Tensor, batch: GraphBatch, sd: int) -> torch.Tensor:
@@ -59,20 +76,41 @@ def aggregate_t(state_t: torch.Tensor, batch: GraphBatch, sd: int) -> torch.Tens
     return agg[:sd]
 
 
-def run_unfold_loops(model, batch: GraphBatch, state0, state_old0, transition, peel_agg=None, feature_axis: int = 1):
-    """Inference unfolding with the early exit.  ``transition(state,
-    aggregated=None)`` is one step; ``peel_agg`` (``Adjᵀ·labels``) replaces
-    the aggregation of iteration 0.  Returns (k, state)."""
+def run_unfold_loops(model, batch: GraphBatch, state0, state_old0, bn0, transition, training: bool,
+                     peel_agg=None, feature_axis: int = 1):
+    """The one unfolding loop.  ``transition(state, bn_state, aggregated=None)``
+    is one step returning (new state, new moving statistics); ``peel_agg``
+    (``Adjᵀ·labels``) replaces the aggregation of iteration 0.  Returns
+    (k, state, moving statistics): ``k`` an int in inference, a 0-dim
+    float tensor on the device in training."""
     K = model.max_iteration
     threshold = model.state_threshold
-    state = state0
-    changed = unconverged(state0, state_old0, batch.node_mask, threshold, feature_axis)
-    k = 0
-    while changed and k < K:
-        new_state = transition(state, peel_agg if k == 0 else None)
-        changed = unconverged(new_state, state, batch.node_mask, threshold, feature_axis)
-        state, k = new_state, k + 1
-    return k, state
+    mask = batch.node_mask
+    if not training:
+        state, bn = state0, bn0
+        changed = unconverged(state0, state_old0, mask, threshold, feature_axis)
+        k = 0
+        while changed and k < K:
+            new_state, bn = transition(state, bn, peel_agg if k == 0 else None)
+            changed = unconverged(new_state, state, mask, threshold, feature_axis)
+            state, k = new_state, k + 1
+        return k, state, bn
+
+    running = unconverged_flag(state0, state_old0, mask, threshold, feature_axis)
+    k = torch.zeros((), dtype=state0.dtype, device=state0.device)
+    state, bn = state0, bn0
+    for step in range(K):
+        new_state, new_bn = transition(state, bn, peel_agg if step == 0 else None)
+        changed = unconverged_flag(new_state, state, mask, threshold, feature_axis)
+        state = torch.where(running, new_state, state)
+        bn = {key: torch.where(running, new_bn[key], bn[key]) for key in bn}
+        k = k + running.to(k.dtype)
+        running = running & changed
+    return k, state, bn
+
+
+def _prefixed(prefix: str, stats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.{key}": value for key, value in stats.items()}
 
 
 class GNNnodeBased(GraphModel):
@@ -103,6 +141,17 @@ class GNNnodeBased(GraphModel):
         self.net_state.reset_parameters(generator)
         self.net_output.reset_parameters(generator)
 
+    def scale_state_grads(self, k: torch.Tensor) -> None:
+        """The reference's ``average_st_grads``: divide the state net's
+        gradients, in place, by max(k, 1) (``k`` may stay on the device)."""
+        denom = torch.clamp_min(torch.as_tensor(k, dtype=torch.float32), 1.0)
+        for p in self.net_state.parameters():
+            if p.grad is not None:
+                p.grad.div_(denom)
+
+    def regularization_loss(self) -> torch.Tensor:
+        return self.net_state.regularization_loss() + self.net_output.regularization_loss()
+
     # -- unfolding -------------------------------------------------------------
     def _use_transposed(self, batch: GraphBatch) -> bool:
         """The feature-major engine for strip batches, and for plain-BCSR
@@ -119,25 +168,25 @@ class GNNnodeBased(GraphModel):
             return batch.agg_arc_labels
         return aggregate_edges(batch.arc_label, batch.arc_dst, batch.arcnode_weight, batch.num_nodes)
 
-    def unfold(self, batch: GraphBatch, *, training: bool = False) -> Tuple[int, torch.Tensor]:
-        """Run the unfolding to convergence.  Returns (k, state (N, d))."""
-        if training:
-            raise NotImplementedError("the training-mode unfolding is not ported yet")
+    def unfold(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None):
+        """Run the unfolding.  Returns (k, state (N, d), the state net's new
+        moving statistics); see ``run_unfold_loops`` for ``k``."""
         if self._use_transposed(batch):
-            return self._unfold_transposed(batch)
+            return self._unfold_transposed(batch, training, generator)
         aggregated_arcs = self._agg_arcs(batch)
         state0 = batch.nodes
 
-        def transition(state, aggregated=None):
+        def transition(state, bn, aggregated=None):
             if aggregated is None:
                 aggregated = batch.aggregate(state)
             inp = torch.cat([state, aggregated, aggregated_arcs], dim=1)
-            return self.net_state.apply(inp, mask=batch.node_mask)
+            return self.net_state.run(inp, feature_major=False, training=training, mask=batch.node_mask,
+                                      generator=generator, bn_state=bn)
 
-        return run_unfold_loops(self, batch, state0, torch.ones_like(state0), transition,
-                                peel_agg=batch.agg_node_labels)
+        return run_unfold_loops(self, batch, state0, torch.ones_like(state0), self.net_state.bn_state(),
+                                transition, training, peel_agg=batch.agg_node_labels)
 
-    def _unfold_transposed(self, batch: GraphBatch) -> Tuple[int, torch.Tensor]:
+    def _unfold_transposed(self, batch: GraphBatch, training: bool, generator: Optional[torch.Generator]):
         """The unfolding on feature-major (d_pad, N) state: one transpose at
         entry and one at exit, none at the aggregation kernel."""
         n = batch.num_nodes
@@ -151,19 +200,20 @@ class GNNnodeBased(GraphModel):
         state_old0 = torch.zeros_like(state0)
         state_old0[:sd] = 1.0
 
-        def transition(state_t, aggregated=None):
+        def transition(state_t, bn, aggregated=None):
             if aggregated is None:
                 aggregated = aggregate_t(state_t, batch, sd)
             inp = torch.cat([state_t[:sd], aggregated, agg_arcs_t], dim=0)
-            new_state = self.net_state.apply_t(inp, mask=batch.node_mask)
+            new_state, new_bn = self.net_state.run(inp, feature_major=True, training=training,
+                                                   mask=batch.node_mask, generator=generator, bn_state=bn)
             if sd_pad != sd:
                 new_state = F.pad(new_state, (0, 0, 0, sd_pad - sd))
-            return new_state
+            return new_state, new_bn
 
         peel = None if batch.agg_node_labels is None else batch.agg_node_labels.T
-        k, state_t = run_unfold_loops(self, batch, state0, state_old0, transition, peel_agg=peel, feature_axis=0)
-        return k, state_t[:sd].T
-
+        k, state_t, bn = run_unfold_loops(self, batch, state0, state_old0, self.net_state.bn_state(), transition,
+                                          training, peel_agg=peel, feature_axis=0)
+        return k, state_t[:sd].T, bn
     # -- fused whole-unfold route (ops/fused.py) --------------------------------
     def fold_transition(self):
         """Fold the state net's inference BatchNorm into its Dense layer and
@@ -208,23 +258,33 @@ class GNNnodeBased(GraphModel):
         per node."""
         return state, batch.output_row_mask
 
-    def node_level_output(self, state: torch.Tensor, batch: GraphBatch, *, training: bool = False):
+    def node_level_output(self, state: torch.Tensor, batch: GraphBatch, *, training: bool = False,
+                          generator: Optional[torch.Generator] = None):
+        """(net_output over the readout rows, row mask, net_output's new
+        moving statistics)."""
         x, row_mask = self.readout_input(state, batch)
-        return self.net_output.apply(x, training=training, mask=row_mask), row_mask
+        out, new_bn = self.net_output.run(x, feature_major=False, training=training, mask=row_mask,
+                                          generator=generator)
+        return out, row_mask, new_bn
 
-    def apply_output(self, state: torch.Tensor, batch: GraphBatch, *, training: bool = False):
-        """Focus-specific output: (out, out_mask)."""
-        return self.node_level_output(state, batch, training=training)
+    def apply_output(self, state: torch.Tensor, batch: GraphBatch, *, training: bool = False,
+                     generator: Optional[torch.Generator] = None):
+        """Focus-specific output: (out, out_mask, net_output's new moving
+        statistics)."""
+        return self.node_level_output(state, batch, training=training, generator=generator)
 
-    def forward(self, batch: GraphBatch, *, training: bool = False):
-        """Full forward: (k, state, out, out_mask); ``out`` is row-aligned with
-        the focus entity and gated by ``out_mask``."""
-        if training:
-            raise NotImplementedError("the training forward is not ported yet")
-        with torch.no_grad():
-            k, state = self.unfold(batch)
-            out, out_mask = self.apply_output(state, batch)
-        return k, state, out, out_mask
+    def forward(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None):
+        """Full forward: (k, state, out, out_mask, new moving statistics).
+        ``out`` is row-aligned with the focus entity and gated by
+        ``out_mask``; the statistics are keyed as in the state dict
+        (``net_state.layers.0.moving_mean``, ...).  Inference runs without
+        autograd and returns the current statistics; training
+        differentiates and returns the updated ones (the buffers are not
+        written).  ``generator`` draws the dropout masks in training."""
+        with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+            k, state, bn_state = self.unfold(batch, training=training, generator=generator)
+            out, out_mask, bn_out = self.apply_output(state, batch, training=training, generator=generator)
+        return k, state, out, out_mask, {**_prefixed("net_state", bn_state), **_prefixed("net_output", bn_out)}
 
     def __repr__(self):
         return (
@@ -239,6 +299,7 @@ class GNNgraphBased(GNNnodeBased):
 
     name = "graph"
 
-    def apply_output(self, state: torch.Tensor, batch: GraphBatch, *, training: bool = False):
-        out_nodes, _ = self.node_level_output(state, batch, training=training)
-        return batch.readout(out_nodes), batch.graph_mask
+    def apply_output(self, state: torch.Tensor, batch: GraphBatch, *, training: bool = False,
+                     generator: Optional[torch.Generator] = None):
+        out_nodes, _, new_bn = self.node_level_output(state, batch, training=training, generator=generator)
+        return batch.readout(out_nodes), batch.graph_mask, new_bn

@@ -6,16 +6,19 @@ positions — the layer program of ``gnnkeras_tpu.models.mlp``.
 ``bias`` parameters, BatchNorm holds ``gamma``/``beta`` parameters and
 ``moving_mean``/``moving_var`` buffers, so the JAX package's variables copy
 over leaf for leaf (``convert.variables_from_jax``).  ``apply`` is row-major
-(rows, features), ``apply_t`` feature-major (features, rows).  This slice
-serves only: BatchNorm uses its moving statistics and dropout is the
-identity; training-mode masked moments and dropout come with the training
-slice.
+(rows, features), ``apply_t`` feature-major (features, rows).
+
+In training mode BatchNorm normalises with masked batch moments (real rows
+only, biased variance, count = max(Σmask, 1)) and ``run`` returns the
+updated moving statistics (Keras momentum 0.99) as a new dict instead of
+writing the buffers, so a loop can carry them; dropout draws its keep mask
+from the ``torch.Generator`` the caller passes (none: identity).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -113,10 +116,66 @@ def get_activation(name_or_fn):
 
 
 # --------------------------------------------------------------------------
+# Regularizers
+# --------------------------------------------------------------------------
+
+
+def get_regularizer(spec):
+    """'l1' / 'l2' / ('l1_l2', a, b) / callable / None → fn(param) -> scalar."""
+    if spec is None:
+        return None
+    if callable(spec):
+        return spec
+    if spec == "l1":
+        return lambda p: 0.01 * torch.sum(torch.abs(p))
+    if spec == "l2":
+        return lambda p: 0.01 * torch.sum(torch.square(p))
+    if isinstance(spec, (tuple, list)) and spec and spec[0] == "l1_l2":
+        l1, l2 = float(spec[1]), float(spec[2])
+        return lambda p: l1 * torch.sum(torch.abs(p)) + l2 * torch.sum(torch.square(p))
+    raise ValueError(f"Unknown regularizer {spec!r}")
+
+
+# --------------------------------------------------------------------------
 # Layers
 # --------------------------------------------------------------------------
 
+_BN_MOMENTUM = 0.99  # Keras BatchNormalization default
 _BN_EPS = 1e-3
+
+# Keras AlphaDropout constant: -selu_alpha * selu_scale.
+_ALPHA_P = -1.7580993408473766
+
+
+def _masked_moments(x: torch.Tensor, mask: Optional[torch.Tensor], feature_major: bool):
+    """Per-feature mean and biased variance over the rows (row-major) or
+    lanes (feature-major) that ``mask`` selects, count = max(Σmask, 1)."""
+    axis = 1 if feature_major else 0
+    if mask is None:
+        m = torch.ones((1, x.shape[1]) if feature_major else (x.shape[0], 1), dtype=x.dtype, device=x.device)
+    else:
+        m = mask.to(x.dtype)[None, :] if feature_major else mask.to(x.dtype)[:, None]
+    count = torch.clamp_min(torch.sum(m), 1.0)
+    mean = torch.sum(x * m, dim=axis) / count
+    centred = x - (mean[:, None] if feature_major else mean)
+    var = torch.sum(torch.square(centred) * m, dim=axis) / count
+    return mean, var
+
+
+def _dropout_keep(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """The keep mask (1 with probability 1 − rate), drawn from ``generator``."""
+    u = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    return (u < 1.0 - rate).to(x.dtype)
+
+
+def _dropout_apply(x: torch.Tensor, rate: float, alpha: bool, keep: torch.Tensor) -> torch.Tensor:
+    """Dropout (inverted scaling) or AlphaDropout (Keras' affine
+    correction) at a given keep mask."""
+    if alpha:
+        a = ((1.0 - rate) * (1.0 + rate * _ALPHA_P**2)) ** -0.5
+        b = -a * _ALPHA_P * rate
+        return a * (x * keep + _ALPHA_P * (1.0 - keep)) + b
+    return x * keep / (1.0 - rate)
 
 
 class _Dense(nn.Module):
@@ -134,12 +193,11 @@ class _BatchNorm(nn.Module):
         self.register_buffer("moving_mean", torch.zeros(features, dtype=torch_floatx()))
         self.register_buffer("moving_var", torch.ones(features, dtype=torch_floatx()))
 
-    def apply_rows(self, x):
-        return (x - self.moving_mean) * torch.rsqrt(self.moving_var + _BN_EPS) * self.gamma + self.beta
-
-    def apply_cols(self, x):
-        scale = torch.rsqrt(self.moving_var + _BN_EPS) * self.gamma
-        return (x - self.moving_mean[:, None]) * scale[:, None] + self.beta[:, None]
+    def normalize(self, x, mean, var, feature_major: bool):
+        if feature_major:
+            scale = torch.rsqrt(var + _BN_EPS) * self.gamma
+            return (x - mean[:, None]) * scale[:, None] + self.beta[:, None]
+        return (x - mean) * torch.rsqrt(var + _BN_EPS) * self.gamma + self.beta
 
 
 def _broadcast(value, n: int, name: str) -> list:
@@ -162,6 +220,8 @@ class MLP(nn.Module):
         activations: Any,
         kernel_initializer: Any = "glorot_uniform",
         bias_initializer: Any = "zeros",
+        kernel_regularizer: Any = None,
+        bias_regularizer: Any = None,
         dropout_rate: Union[List[float], float, None] = None,
         dropout_pos: Optional[Union[List[int], int]] = None,
         alphadropout: bool = False,
@@ -178,6 +238,8 @@ class MLP(nn.Module):
         acts = _broadcast(activations, n, "activations")
         k_inits = _broadcast(kernel_initializer, n, "kernel_initializer")
         b_inits = _broadcast(bias_initializer, n, "bias_initializer")
+        k_regs = _broadcast(kernel_regularizer, n, "kernel_regularizer")
+        b_regs = _broadcast(bias_regularizer, n, "bias_regularizer")
 
         if isinstance(dropout_pos, int):
             dropout_pos = [dropout_pos]
@@ -188,7 +250,9 @@ class MLP(nn.Module):
         if len(dropout_rate) != len(dropout_pos):
             raise ValueError("Dropout parameters must have the same length")
 
-        program: List[tuple] = [("dense", u, a, ki, bi) for u, a, ki, bi in zip(units, acts, k_inits, b_inits)]
+        program: List[tuple] = [
+            ("dense", u, a, ki, bi, kr, br) for u, a, ki, bi, kr, br in zip(units, acts, k_inits, b_inits, k_regs, b_regs)
+        ]
         adjusted = np.array(dropout_pos, dtype=int) + np.arange(len(dropout_pos))
         for rate, pos in zip(dropout_rate, adjusted):
             program.insert(int(pos), ("dropout", float(rate), bool(alphadropout)))
@@ -228,10 +292,34 @@ class MLP(nn.Module):
                     mod.moving_mean.zero_()
                     mod.moving_var.fill_(1.0)
 
-    def _run(self, x: torch.Tensor, training: bool, feature_major: bool) -> torch.Tensor:
-        if training:
-            raise NotImplementedError("training-mode BatchNorm and dropout are not ported yet")
-        for layer, mod in zip(self.program, self.layers):
+    def bn_state(self) -> Dict[str, torch.Tensor]:
+        """The moving statistics, ``{"layers.{i}.moving_mean": ..., ...}``
+        (the buffers themselves, keyed as in the state dict)."""
+        return {
+            f"layers.{i}.{key}": getattr(mod, key)
+            for i, (layer, mod) in enumerate(zip(self.program, self.layers))
+            if layer[0] == "batch_norm"
+            for key in ("moving_mean", "moving_var")
+        }
+
+    def run(
+        self,
+        x: torch.Tensor,
+        *,
+        feature_major: bool,
+        training: bool = False,
+        mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        bn_state: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The layer program on (rows, features), or (features, rows) when
+        ``feature_major``.  ``bn_state`` (default: the buffers) holds the
+        moving statistics that eval mode normalises with and training mode
+        updates.  Returns (output, new moving statistics); the buffers are
+        not written."""
+        stats = self.bn_state() if bn_state is None else bn_state
+        new_stats: Dict[str, torch.Tensor] = {}
+        for i, (layer, mod) in enumerate(zip(self.program, self.layers)):
             if layer[0] == "dense":
                 act = layer[2]
                 if feature_major:
@@ -240,21 +328,45 @@ class MLP(nn.Module):
                 else:
                     x = get_activation(act)(x @ mod.kernel + mod.bias)
             elif layer[0] == "batch_norm":
-                x = mod.apply_cols(x) if feature_major else mod.apply_rows(x)
-            # dropout: identity outside training
-        return x
+                mean_key, var_key = f"layers.{i}.moving_mean", f"layers.{i}.moving_var"
+                if training:
+                    mean, var = _masked_moments(x, mask, feature_major)
+                    new_stats[mean_key] = _BN_MOMENTUM * stats[mean_key] + (1.0 - _BN_MOMENTUM) * mean.detach()
+                    new_stats[var_key] = _BN_MOMENTUM * stats[var_key] + (1.0 - _BN_MOMENTUM) * var.detach()
+                else:
+                    mean, var = stats[mean_key], stats[var_key]
+                    new_stats[mean_key], new_stats[var_key] = mean, var
+                x = mod.normalize(x, mean, var, feature_major)
+            elif training and layer[1] > 0.0 and generator is not None:
+                x = _dropout_apply(x, layer[1], layer[2], _dropout_keep(x, layer[1], generator))
+        return x, new_stats
 
     # named after the JAX package's ``MLP.apply``; it shadows
     # ``nn.Module.apply(fn)``, which this module does not use
-    def apply(self, x: torch.Tensor, *, training: bool = False, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def apply(self, x: torch.Tensor, *, training: bool = False, mask: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Row-major forward on (rows, features).  ``mask`` selects the real
         rows for training-mode BatchNorm statistics."""
-        return self._run(x, training, feature_major=False)
+        return self.run(x, feature_major=False, training=training, mask=mask, generator=generator)[0]
 
-    def apply_t(self, x: torch.Tensor, *, training: bool = False, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def apply_t(self, x: torch.Tensor, *, training: bool = False, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Feature-major forward on (features, rows); softmax normalises over
-        the feature axis."""
-        return self._run(x, training, feature_major=True)
+        the feature axis and ``mask`` selects lanes."""
+        return self.run(x, feature_major=True, training=training, mask=mask, generator=generator)[0]
+
+    def regularization_loss(self) -> torch.Tensor:
+        """Sum of the Dense layers' kernel and bias regularizer penalties."""
+        total = torch.zeros((), dtype=torch_floatx(), device=next(self.parameters()).device)
+        for layer, mod in zip(self.program, self.layers):
+            if layer[0] != "dense":
+                continue
+            kr_fn, br_fn = get_regularizer(layer[5]), get_regularizer(layer[6])
+            if kr_fn is not None:
+                total = total + kr_fn(mod.kernel)
+            if br_fn is not None:
+                total = total + br_fn(mod.bias)
+        return total
 
     def __repr__(self):
         return f"MLP(name={self.name}, in={self.input_dim}, units={self.units}, bn={self.batch_normalization})"

@@ -10,10 +10,14 @@ f32 scale per destination column (sum/normalized/average aggregation over
 deduplicated arcs); otherwise the weights are stored directly in f32 or
 bf16 with no scale.
 
-``strip_matmul`` is the kernel (``csrc/strip_matmul.cu``); on a CPU tensor it
-runs its plain PyTorch version ``_strip_matmul_plain``.  The compact slot
-32/64 strips (mixed format) and the backward direction (with the transposed
-blocks it reads) come with later slices.
+``strip_matmul`` is the forward kernel and ``strip_matmul_t`` its backward
+(both in ``csrc/strip_matmul.cu``); on a CPU tensor each runs its plain
+PyTorch version (``_strip_matmul_plain``, ``_strip_matmul_t_plain``).  The
+backward reads the forward blocks transposed on chip, so no transposed
+operator is stored.  ``strip_matmul`` is differentiable through a
+``torch.autograd.Function`` whose backward is ``strip_matmul_t``; the BCSR
+residual stays plain torch ops, so autograd takes its transpose.  The compact
+slot 32/64 strips (mixed format) come with a later slice.
 """
 
 from __future__ import annotations
@@ -145,65 +149,108 @@ def _strip_matmul_plain(state_t: torch.Tensor, strip: torch.Tensor, scale: Optio
     return out.permute(1, 0, 2).reshape(d, n)
 
 
+def _strip_matmul_t_plain(ct_t: torch.Tensor, strip: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """The backward's decomposition: per tile, the cotangent scaled along
+    the contraction axis, times the transposed upcast block."""
+    d, n = ct_t.shape
+    t = strip.shape[0]
+    tiles = ct_t.reshape(d, t, TILE).permute(1, 0, 2)  # (T, d, 128)
+    if scale is not None:
+        tiles = tiles * scale[:, None, :]
+    out = torch.bmm(tiles, strip.to(ct_t.dtype).transpose(1, 2))
+    return out.permute(1, 0, 2).reshape(d, n)
+
+
+def _check_operands(name: str, x: torch.Tensor, strip: torch.Tensor, scale: Optional[torch.Tensor]) -> None:
+    if x.dim() != 2 or strip.dim() != 3 or tuple(strip.shape[1:]) != (TILE, TILE):
+        raise ValueError(f"{name}: bad shapes state {tuple(x.shape)}, strip {tuple(strip.shape)}")
+    t = strip.shape[0]
+    if x.shape[1] != t * TILE:
+        raise ValueError(f"{name}: state has {x.shape[1]} columns, operator covers {t * TILE}")
+    if (strip.dtype == torch.int8) != (scale is not None):
+        raise ValueError(f"{name}: int8 storage needs a scale, float storage takes none")
+    if scale is not None and tuple(scale.shape) != (t, TILE):
+        raise ValueError(f"{name}: scale {tuple(scale.shape)} must be {(t, TILE)}")
+
+
+class _StripMatmul(torch.autograd.Function):
+    """The diagonal-block product with the backward kernel as its gradient
+    (the operator is data: it gets no gradient)."""
+
+    @staticmethod
+    def forward(ctx, state_t, strip, scale):
+        ctx.save_for_backward(strip, scale)
+        return _launch_or_plain("strip_matmul", state_t, strip, scale)
+
+    @staticmethod
+    def backward(ctx, ct_t):
+        strip, scale = ctx.saved_tensors
+        return strip_matmul_t(ct_t.contiguous(), strip, scale), None, None
+
+
 def strip_matmul(state_t: torch.Tensor, strip: torch.Tensor, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out[:, tile t] = (state_t[:, tile t] @ strip[t]) * scale[t]``.
+    """``out[:, tile t] = (state_t[:, tile t] @ strip[t]) * scale[t]``,
+    differentiable in ``state_t``.
 
     state_t (d_pad, 128·T) f32 feature-major; strip (T, 128, 128) int8 with
     ``scale`` (T, 128) f32, or f32/bf16 weights with ``scale=None``.  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel."""
-    if state_t.dim() != 2 or strip.dim() != 3 or tuple(strip.shape[1:]) != (TILE, TILE):
-        raise ValueError(f"strip_matmul: bad shapes state {tuple(state_t.shape)}, strip {tuple(strip.shape)}")
-    d, n = state_t.shape
-    t = strip.shape[0]
-    if n != t * TILE:
-        raise ValueError(f"strip_matmul: state has {n} columns, operator covers {t * TILE}")
-    if (strip.dtype == torch.int8) != (scale is not None):
-        raise ValueError("strip_matmul: int8 storage needs a scale, float storage takes none")
-    if scale is not None and tuple(scale.shape) != (t, TILE):
-        raise ValueError(f"strip_matmul: scale {tuple(scale.shape)} must be {(t, TILE)}")
-    if state_t.device.type == "cpu":
-        return _strip_matmul_plain(state_t, strip, scale)
-    return _strip_matmul_cuda(state_t, strip, scale)
+    _check_operands("strip_matmul", state_t, strip, scale)
+    return _StripMatmul.apply(state_t, strip, scale)
+
+
+def strip_matmul_t(ct_t: torch.Tensor, strip: torch.Tensor, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The backward of ``strip_matmul``:
+    ``out[:, tile t] = (ct_t[:, tile t] · diag(scale[t])) @ strip[t]ᵀ``.
+    Same operands and devices as ``strip_matmul``."""
+    _check_operands("strip_matmul_t", ct_t, strip, scale)
+    return _launch_or_plain("strip_matmul_t", ct_t, strip, scale)
 
 
 _MASK_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+_PLAIN = {"strip_matmul": _strip_matmul_plain, "strip_matmul_t": _strip_matmul_t_plain}
 
 
-def _strip_matmul_cuda(state_t, strip, scale):
+def _launch_or_plain(name: str, x, strip, scale):
+    """The plain version for a CPU tensor; for a CUDA tensor the kernel's
+    launch, counted in ``kernels.LAUNCHES[name]``, or an error."""
+    if x.device.type == "cpu":
+        return _PLAIN[name](x, strip, scale)
     from gnnkeras_tpu_torch import kernels
 
-    if state_t.device.type != "cuda":
-        raise ValueError(f"strip_matmul: no kernel for device {state_t.device}")
-    d, n = state_t.shape
-    operands = (state_t, strip) if scale is None else (state_t, strip, scale)
-    if any(x.device != state_t.device for x in operands):
-        raise ValueError("strip_matmul: operands on different devices")
-    if not all(x.is_contiguous() for x in operands):
-        raise ValueError("strip_matmul: operands must be contiguous")
-    if state_t.dtype != torch.float32 or (scale is not None and scale.dtype != torch.float32):
-        raise ValueError("strip_matmul: state and scale must be float32")
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    d = x.shape[0]
+    operands = (x, strip) if scale is None else (x, strip, scale)
+    if any(o.device != x.device for o in operands):
+        raise ValueError(f"{name}: operands on different devices")
+    if not all(o.is_contiguous() for o in operands):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if strip.data_ptr() % 4:
+        raise ValueError(f"{name}: the operator must start on a 4-byte boundary")
+    if x.dtype != torch.float32 or (scale is not None and scale.dtype != torch.float32):
+        raise ValueError(f"{name}: state and scale must be float32")
     if strip.dtype not in _MASK_KIND:
-        raise ValueError(f"strip_matmul: unsupported operator dtype {strip.dtype}")
+        raise ValueError(f"{name}: unsupported operator dtype {strip.dtype}")
     if d % D_SUB:
-        raise ValueError(f"strip_matmul: feature rows {d} must be a multiple of {D_SUB}")
-    if torch.is_grad_enabled() and state_t.requires_grad:
-        raise NotImplementedError("strip_matmul: the backward kernel is not ported yet; call under torch.no_grad()")
-    out = torch.empty_like(state_t)
-    lib = kernels.load("strip_matmul")
-    with torch.cuda.device(state_t.device):
-        err = lib.gnn_strip_matmul(
-            state_t.data_ptr(), strip.data_ptr(), _MASK_KIND[strip.dtype],
+        raise ValueError(f"{name}: feature rows {d} must be a multiple of {D_SUB}")
+    out = torch.empty_like(x)
+    fn = getattr(kernels.load("strip_matmul"), f"gnn_{name}")
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(), strip.data_ptr(), _MASK_KIND[strip.dtype],
             None if scale is None else scale.data_ptr(), out.data_ptr(),
-            d, strip.shape[0], kernels.stream_of(state_t),
+            d, strip.shape[0], kernels.stream_of(x),
         )
-    kernels.check(err, "strip_matmul")
-    kernels.LAUNCHES["strip_matmul"] += 1
+    kernels.check(err, name)
+    kernels.LAUNCHES[name] += 1
     return out
 
 
 def strip_aggregate_t(state_t: torch.Tensor, op: StripOperator) -> torch.Tensor:
     """``Adjᵀ·state`` on feature-major state: (d_pad, N) → (d_pad, N),
-    through the diagonal blocks plus the BCSR residual when present."""
+    through the diagonal blocks plus the BCSR residual when present;
+    differentiable in ``state_t``."""
     out = strip_matmul(state_t, op.strip, op.scale)
     if op.residual is not None:
         out = out + bcsr_aggregate_t(state_t, op.residual)

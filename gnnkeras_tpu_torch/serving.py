@@ -121,7 +121,7 @@ class Predictor:
             merged, pad_nodes=self.max_nodes, pad_arcs=self.max_arcs, pad_graphs=self.max_graphs,
             device=self.device,
         ))
-        _, _, out, _ = self.model.forward(batch, training=False)
+        _, _, out, _, _ = self.model.forward(batch, training=False)
         return out.cpu().numpy()[batch.host_pred_rows]
 
     def _predict_fused(self, merged: GraphObject) -> Optional[np.ndarray]:
@@ -164,7 +164,7 @@ class Predictor:
             h = bias.shape[0]
             const_t = F.pad(w_arc, (0, d_pad - h)).T @ agg_arcs_t + F.pad(bias, (0, d_pad - h))[:, None]
             state_t = fused_unfold_t(nodes_t, const_t, w_state, w_agg, op, model.max_iteration, self._act)
-            out, _ = model.apply_output(state_t.T[:, :h], batch)
+            out, _, _ = model.apply_output(state_t.T[:, :h], batch)
         # host_pred_rows undoes the tile-pack permutation
         return out.cpu().numpy()[batch.host_pred_rows]
 

@@ -42,7 +42,7 @@ def test_forward_matches_jax(layout, threshold):
     assert tmodel._use_transposed(tb) == jmodel._use_transposed(jb) == (layout != "edge_list")
 
     jk, jstate, jout, jmask, _ = jmodel.forward(jmodel.variables, jb, training=False)
-    k, state, out, mask = tmodel.forward(tb, training=False)
+    k, state, out, mask, _ = tmodel.forward(tb, training=False)
 
     assert k == int(jk)
     if threshold == 0.0:
@@ -70,6 +70,11 @@ def test_strip_forward_aggregates_k_minus_one_times(monkeypatch):
 
 
 def test_dim_state_and_training_not_ported():
+    """dim_state > 0 still raises; the training forward runs (its parity
+    with JAX is in test_torch_training.py) and returns k as a device float
+    and the new moving statistics keyed as in the state dict."""
+    import torch
+
     import gnnkeras_tpu_torch.models.gnn as tgnn
     from torch_port_common import _nets, tmlp
 
@@ -77,5 +82,6 @@ def test_dim_state_and_training_not_ported():
         tgnn.GNNgraphBased(*_nets(tmlp), 5, 5, 0.0)
     _, tmodel = flagship_pair(seed=1)
     _, tm = merged_pair(raw_molecules(n_graphs=2, seed=2))
-    with pytest.raises(NotImplementedError):
-        tmodel.forward(tbatch.from_graph_object(tm, device="cpu"), training=True)
+    k, _, out, _, stats = tmodel.forward(tbatch.from_graph_object(tm, device="cpu"), training=True)
+    assert isinstance(k, torch.Tensor) and float(k) == 5.0 and out.requires_grad
+    assert set(stats) == {name for name, _ in tmodel.named_buffers()}

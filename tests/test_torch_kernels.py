@@ -57,6 +57,19 @@ def test_strip_cpu_wrapper_takes_plain_version(storage):
     assert kernels.LAUNCHES == before
 
 
+@pytest.mark.parametrize("storage", ["int8", "float32", "bfloat16"])
+def test_strip_t_cpu_wrapper_takes_plain_version(storage):
+    x, m, s = _strip_inputs(storage)
+    before = dict(kernels.LAUNCHES)
+    torch.testing.assert_close(strip.strip_matmul_t(x, m, s), strip._strip_matmul_t_plain(x, m, s), rtol=0, atol=0)
+    # the autograd backward of strip_matmul runs the same wrapper
+    x.requires_grad_(True)
+    ct = torch.randn(x.shape, generator=torch.Generator().manual_seed(1))
+    (grad,) = torch.autograd.grad(strip.strip_matmul(x, m, s), x, ct)
+    torch.testing.assert_close(grad, strip._strip_matmul_t_plain(ct, m, s), rtol=0, atol=0)
+    assert kernels.LAUNCHES == before
+
+
 def test_fused_cpu_wrapper_takes_plain_version():
     s0, c, ws, wa, op = _fused_inputs()
     before = dict(kernels.LAUNCHES)
@@ -71,23 +84,27 @@ def test_sources_and_build_paths():
     for name in kernels.SOURCES:
         path = kernels.library_path(name)
         assert path.startswith(kernels.BUILD_DIR) and path.endswith(".so")
-    assert set(kernels.LAUNCHES) == {"strip_matmul", "fused_unfold_t"}
+    assert set(kernels.LAUNCHES) == {"strip_matmul", "strip_matmul_t", "fused_unfold_t"}
 
 
-# Every width each kernel is built for: the strip kernel's 8-row and 16-row
-# chunks, and the fused kernel's four instances (24 and 32 need more than
-# 48 KiB of shared memory).  The flagship runs d_pad 16.
+# Every width each kernel is built for: the strip kernels' 8-row and 16-row
+# chunks in both directions (the backward's f32 tile needs more than 48 KiB
+# of shared memory), and the fused kernel's four instances (24 and 32 need
+# more than 48 KiB).  The flagship runs d_pad 16.
 @pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["strip_matmul", "strip_matmul_t"])
 @pytest.mark.parametrize("storage", ["int8", "float32", "bfloat16"])
 @pytest.mark.parametrize("d", [8, 16, 24, 32, 48])
-def test_strip_kernel_matches_plain_on_card(cuda, d, storage):
+def test_strip_kernel_matches_plain_on_card(cuda, d, storage, direction):
     x, m, s = (None if a is None else a.to(cuda) for a in _strip_inputs(storage, t=40, d=d, seed=d))
-    before = kernels.LAUNCHES["strip_matmul"]
-    got = strip.strip_matmul(x, m, s)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["strip_matmul"] == before + 1
-    # f32 sums of the same terms in another order
-    torch.testing.assert_close(got, strip._strip_matmul_plain(x, m, s), rtol=1e-5, atol=1e-5)
+    plain = {"strip_matmul": strip._strip_matmul_plain, "strip_matmul_t": strip._strip_matmul_t_plain}[direction]
+    before = kernels.LAUNCHES[direction]
+    for _ in range(2):  # the second launch finds any shared-memory limit already raised
+        got = getattr(strip, direction)(x, m, s)
+        torch.cuda.synchronize()
+        # f32 sums of the same terms in another order
+        torch.testing.assert_close(got, plain(x, m, s), rtol=1e-5, atol=1e-5)
+    assert kernels.LAUNCHES[direction] == before + 2
 
 
 @pytest.mark.cuda

@@ -72,5 +72,6 @@ def test_initialisers_draw_from_generator():
     torch.testing.assert_close(a.layers[0].kernel, b.layers[0].kernel, rtol=0, atol=0)
     std = float(a.layers[0].kernel.detach().std())
     assert abs(std - np.sqrt(1.0 / 350.0)) < 0.02 * np.sqrt(1.0 / 350.0)
-    with pytest.raises(NotImplementedError):
-        a.apply(torch.zeros(2, 400), training=True)
+    # no BatchNorm and no dropout: training mode computes what eval mode does
+    x = torch.randn(2, 400, generator=torch.Generator().manual_seed(4))
+    torch.testing.assert_close(a.apply(x, training=True), a.apply(x), rtol=0, atol=0)

@@ -44,6 +44,29 @@ def raw_molecules(n_graphs=12, seed=0, dn=14, da=3, t_dim=2, big=()):
     return out
 
 
+def node_targets(raw, t_dim=2, seed=0):
+    """``raw`` with one one-hot target per node (node focus)."""
+    rng = np.random.default_rng(seed)
+    return [(n, a, np.eye(t_dim, dtype=np.float32)[rng.integers(0, t_dim, n.shape[0])]) for n, a, _ in raw]
+
+
+class Batches:
+    """A sequencer over prebuilt batches (``len``, ``[i]``,
+    ``on_epoch_end``), for either package's ``fit``/``evaluate``/``predict``."""
+
+    def __init__(self, batches):
+        self.batches = list(batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __getitem__(self, i):
+        return self.batches[i]
+
+    def on_epoch_end(self):
+        pass
+
+
 def unique_pairs(raw):
     """Keep the first arc of every (src, dst) pair: no parallel arcs, so the
     average-aggregation operator factors into an int8 mask and a scale."""
@@ -91,15 +114,23 @@ def perturb_bn(variables, seed):
     return variables
 
 
-def flagship_pair(seed=0, threshold=0.0, max_iteration=5, node_focus=False):
+def flagship_pair(seed=0, threshold=0.0, max_iteration=5, node_focus=False, state_dense=None):
     """The flagship GNN (starter architecture, dim_state 0) in both packages
-    with the same weights; the port's model lives on the CPU."""
+    with the same weights; the port's model lives on the CPU.
+    ``state_dense=(scale, shift)`` multiplies the state net's Dense kernel by
+    ``scale`` and adds ``shift`` to its bias: a small scale and a large shift
+    make each step move the state little against its norm, so the unfolding
+    converges before ``max_iteration`` at a threshold > 0."""
     focus = "n" if node_focus else "g"
     jcls = jgnn.GNNnodeBased if node_focus else jgnn.GNNgraphBased
     tcls = tgnn.GNNnodeBased if node_focus else tgnn.GNNgraphBased
     jm = jcls(*_nets(jmlp, focus=focus), 0, max_iteration, threshold)
     jm.build(seed=seed)
     jm.variables = perturb_bn(jm.variables, seed)
+    if state_dense is not None:
+        dense = jm.variables["params"]["net_state"][-1]
+        dense["kernel"] = dense["kernel"] * state_dense[0]
+        dense["bias"] = dense["bias"] + state_dense[1]
     tm = tcls(*_nets(tmlp, focus=focus), 0, max_iteration, threshold).build(seed=seed, device="cpu")
     tm.load_state_dict(variables_from_jax(jax.tree_util.tree_map(np.asarray, jm.variables)))
     return jm, tm
