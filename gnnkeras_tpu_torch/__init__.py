@@ -16,13 +16,14 @@ torch.backends.cudnn.allow_tf32 = False
 
 from gnnkeras_tpu_torch.graph.batch import GraphBatch, from_graph_object, graphs_to_batch  # noqa: E402
 from gnnkeras_tpu_torch.graph.graph import GraphObject  # noqa: E402
-from gnnkeras_tpu_torch.models.gnn import GNNgraphBased, GNNnodeBased  # noqa: E402
+from gnnkeras_tpu_torch.models.gnn import GNNarcBased, GNNgraphBased, GNNnodeBased  # noqa: E402
 from gnnkeras_tpu_torch.models.mlp import MLP, get_inout_dims  # noqa: E402
 from gnnkeras_tpu_torch.serving import Predictor  # noqa: E402
 
 __all__ = [
     "GraphBatch",
     "GraphObject",
+    "GNNarcBased",
     "GNNgraphBased",
     "GNNnodeBased",
     "MLP",

@@ -10,6 +10,10 @@
   2-class graph target, for serving requests.
 - ``flagship_gnn``: the model ``bench.py`` runs on that batch, with random
   weights from a seed.
+- ``bench_arc_graph`` and ``arc_gnn``: the arc-focused workload of the
+  repository's ``scripts/bench_arc_step.py`` on the same synthetic graphs: a
+  2-class target per arc, and the arc-focused model with the starter
+  architecture.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from gnnkeras_tpu_torch.graph.graph import GraphObject
-from gnnkeras_tpu_torch.models.gnn import GNNgraphBased
+from gnnkeras_tpu_torch.models.gnn import GNNarcBased, GNNgraphBased
 from gnnkeras_tpu_torch.models.mlp import MLP, get_inout_dims
 
 
@@ -51,6 +55,30 @@ def bench_graph(seed: int = 0) -> GraphObject:
     return GraphObject(
         nodes=nodes, arcs=arcs, targets=targets, focus="g", aggregation_mode="average",
         NodeGraph=(graph_of_node, (1.0 / counts[graph_of_node]).astype(np.float32)),
+    )
+
+
+def arc_gnn(device="cuda", seed: int = 0) -> GNNarcBased:
+    """Arc-focused GNN: dim_state 0, BatchNorm → Dense(31→14, selu) state
+    net, BatchNorm → Dense(31→2, softmax) output net over ``[src state |
+    dst state | arc label]``, max_iteration 5, threshold 0."""
+    ins, ls = get_inout_dims("state", 14, 3, 2, "a", 0)
+    ino, lo = get_inout_dims("output", 14, 3, 2, "a", 0)
+    net_state = MLP(ins[0], ls, "selu", kernel_initializer="lecun_normal", bias_initializer="lecun_normal")
+    net_output = MLP(ino[0], lo, "softmax", kernel_initializer="glorot_normal", bias_initializer="glorot_normal")
+    return GNNarcBased(net_state, net_output, 0, 5, 0.0).build(seed=seed, device=device)
+
+
+def bench_arc_graph(seed: int = 0) -> GraphObject:
+    """``bench_graph(seed)``'s nodes, arcs and graph partition (so slot
+    packing acts per graph) in arc focus, with a one-hot 2-class target per
+    arc drawn from the seed."""
+    g = bench_graph(seed)
+    rng = np.random.default_rng([seed, 1])
+    targets = np.eye(2, dtype=np.float32)[rng.integers(0, 2, g.arcs.shape[0])]
+    return GraphObject(
+        nodes=g.nodes, arcs=g.arcs, targets=targets, focus="a", aggregation_mode="average",
+        NodeGraph=(g.graph_of_node, g.nodegraph_weight), arcs_canonical=True,
     )
 
 

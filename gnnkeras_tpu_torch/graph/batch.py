@@ -5,9 +5,10 @@ padded; padded arcs carry weight 0 and padded nodes are masked everywhere, so
 they are inert in aggregation, BatchNorm, convergence checks and readout.
 Operators travel as (src, dst, weight) arrays plus, for 128-aligned batches,
 dense-block BCSR, the slot-128 strip operator and the compact tile-wise
-readout.  Everything is built on the host in NumPy and moved to ``device``
-once.  The quantised ``agg_dtype`` operators, composite batches and arc
-incidence come with later slices.
+readout, and for the arc focus the incidence pairs of the arc readout.
+Everything is built on the host in NumPy and moved to ``device`` once.  The
+quantised ``agg_dtype`` operators and composite batches come with later
+slices.
 """
 
 from __future__ import annotations
@@ -101,6 +102,10 @@ class GraphBatch:
     # ``ArcNodeᵀ·arc_labels`` and ``Adjᵀ·node_labels``
     agg_arc_labels: Optional[torch.Tensor]  # (N, da)
     agg_node_labels: Optional[torch.Tensor]  # (N, dn)
+    # arc focus: the union incidence pairs (arc row → src/dst endpoint) of
+    # the arc readout's select and scatter (ops/incidence.py); None elsewhere
+    # or when the structure declined
+    arc_inc: Optional[object] = None  # IncidencePairs
     focus: str = "n"
     dim_node_label: Tuple[int, ...] = ()
     host_pred_rows: Optional[np.ndarray] = None
@@ -359,6 +364,14 @@ def from_graph_object(
 
     agg_arc, agg_node = native.agg_label_sums(src[:a], dst[:a], w[:a], arc_label[:a], nodes, N)
 
+    arc_inc = None
+    if g.focus == "a" and dense_blocks:
+        from gnnkeras_tpu_torch.ops.incidence import build_incidence_pairs
+
+        arc_inc = build_incidence_pairs(src, dst, N)
+        if arc_inc is not None:
+            arc_inc = arc_inc.to(device)
+
     T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
     return GraphBatch(
         nodes=T(nodes),
@@ -382,6 +395,7 @@ def from_graph_object(
         compact_readout=compact_readout,
         agg_arc_labels=T(agg_arc.astype(dtype)),
         agg_node_labels=T(agg_node.astype(dtype)),
+        arc_inc=arc_inc,
         focus=g.focus,
         dim_node_label=tuple(int(d) for d in g.DIM_NODE_LABEL),
         host_pred_rows=pred_rows,
@@ -389,16 +403,20 @@ def from_graph_object(
 
 
 def pad_operators_to_cap(batch: GraphBatch) -> GraphBatch:
-    """Pad the data-dependent BCSR block counts to their caps
-    (``_MAX_BAND_FACTOR × tiles``), so every batch of one padded shape has
-    the same operator shapes whatever its topology."""
+    """Pad the data-dependent BCSR block counts and incidence pair count to
+    their caps (``_MAX_BAND_FACTOR × tiles``, ``_MAX_PAIRS_PER_ARC_TILE ×
+    arc tiles``), so every batch of one padded shape has the same operator
+    shapes whatever its topology."""
     from gnnkeras_tpu_torch.ops.bcsr import _MAX_BAND_FACTOR, pad_bcsr
+    from gnnkeras_tpu_torch.ops.incidence import _MAX_PAIRS_PER_ARC_TILE, pad_incidence_pairs
 
     kwargs = {}
     for name in ("bcsr", "nodegraph_bcsr"):
         m = getattr(batch, name)
         if m is not None:
             kwargs[name] = pad_bcsr(m, _MAX_BAND_FACTOR * max(m.n_src_tiles, m.n_dst_tiles))
+    if batch.arc_inc is not None:
+        kwargs["arc_inc"] = pad_incidence_pairs(batch.arc_inc, _MAX_PAIRS_PER_ARC_TILE * batch.arc_inc.n_arc_tiles)
     return batch.replace(**kwargs) if kwargs else batch
 
 

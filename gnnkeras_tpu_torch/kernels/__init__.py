@@ -41,10 +41,16 @@ _ENTRIES = {
         "gnn_strip_matmul_t": [_P, _P, _I, _P, _P, _I, _I, _P],
     },
     "fused_unfold": {"gnn_fused_unfold_t": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "incidence": {
+        "gnn_incidence_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "gnn_incidence_scatter": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
 }
 SOURCES = tuple(_ENTRIES)
 
-LAUNCHES: Dict[str, int] = {"strip_matmul": 0, "strip_matmul_t": 0, "fused_unfold_t": 0}
+LAUNCHES: Dict[str, int] = {
+    "strip_matmul": 0, "strip_matmul_t": 0, "fused_unfold_t": 0, "incidence_select": 0, "incidence_scatter": 0,
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

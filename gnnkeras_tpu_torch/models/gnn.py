@@ -13,15 +13,24 @@ One unfolding loop, two modes (``run_unfold_loops``):
   read on the host inside the loop; autograd differentiates through the
   steps (activations are stored, no rematerialisation).
 
-Iteration 0 is peeled from the batch's host-precomputed ``Adjᵀ·labels``
-when the state is the node label (``dim_state == 0``), so a forward of k
-iterations aggregates k − 1 times.
+With ``per_iteration_bn`` the state net keeps one set of moving statistics
+per iteration ((K, f) buffers): training reads and writes set k at step k,
+inference reads set min(k, K − 1).
+
+``dim_state == 0``: the state is the node label, and iteration 0 is peeled
+from the batch's host-precomputed ``Adjᵀ·labels``, so a forward of k
+iterations aggregates k − 1 times.  ``dim_state > 0``: the state starts as
+N(0, 0.1²) noise drawn by ``initial_state`` from the caller's generator,
+the transition input is ``[state | labels | Σstate | Σlabels | Σarcs]`` and
+the readout input ``[state | labels]``; nothing is peeled.
 
 Two engines, picked per batch as in the JAX package (``_use_transposed``):
 row-major (N, d) state through ``GraphBatch.aggregate``, and feature-major
 (d_pad, N) state through the slot-128 strip kernel (``ops/strip.py``) or the
-dense-block BCSR.  ``dim_state > 0``, per-iteration BatchNorm, the arc focus
-and the LGNN/composite models come with later slices.
+dense-block BCSR.  The arc-focused readout reads both endpoints' rows
+through the incidence select and, backward, scatter kernels
+(``ops/incidence.py``).  The LGNN and composite models come with later
+slices.
 """
 
 from __future__ import annotations
@@ -36,10 +45,18 @@ from gnnkeras_tpu_torch.models.base import GraphModel
 from gnnkeras_tpu_torch.models.mlp import MLP
 from gnnkeras_tpu_torch.ops.segment import aggregate_edges
 
+STATE_INIT_STDDEV = 0.1  # the reference's random state init, N(0, 0.1²)
+
 # plain-BCSR batches run feature-major while the padded state width is at
 # most this (the JAX package's measured boundary, kept so both packages pick
 # the same engine for the same batch)
 _TRANSPOSED_BCSR_MAX_STATE_DIM = 32
+
+
+def initial_state(n: int, ds: int, generator: torch.Generator, device) -> torch.Tensor:
+    """The dim_state > 0 initial state: N(0, 0.1²) drawn in (n, ds) row
+    order from ``generator``, on ``device`` (the generator's)."""
+    return STATE_INIT_STDDEV * torch.randn((n, ds), generator=generator, device=device, dtype=torch.float32)
 
 
 def unconverged_flag(state, state_old, node_mask, threshold: float, feature_axis: int = 1) -> torch.Tensor:
@@ -80,18 +97,27 @@ def run_unfold_loops(model, batch: GraphBatch, state0, state_old0, bn0, transiti
                      peel_agg=None, feature_axis: int = 1):
     """The one unfolding loop.  ``transition(state, bn_state, aggregated=None)``
     is one step returning (new state, new moving statistics); ``peel_agg``
-    (``Adjᵀ·labels``) replaces the aggregation of iteration 0.  Returns
-    (k, state, moving statistics): ``k`` an int in inference, a 0-dim
-    float tensor on the device in training."""
+    (``Adjᵀ·labels``) replaces the aggregation of iteration 0.  With
+    ``model.per_iteration_bn`` the statistics in ``bn0`` are (K, f) stacks
+    and step k takes slice k.  Returns (k, state, moving statistics): ``k``
+    an int in inference, a 0-dim float tensor on the device in training."""
     K = model.max_iteration
     threshold = model.state_threshold
     mask = batch.node_mask
+    per_iter = model.per_iteration_bn and K >= 1
+
+    def take(i):
+        return {key: value[i] for key, value in bn0.items()}
+
     if not training:
         state, bn = state0, bn0
         changed = unconverged(state0, state_old0, mask, threshold, feature_axis)
         k = 0
         while changed and k < K:
-            new_state, bn = transition(state, bn, peel_agg if k == 0 else None)
+            new_state, new_bn = transition(state, take(min(k, K - 1)) if per_iter else bn,
+                                           peel_agg if k == 0 else None)
+            if not per_iter:
+                bn = new_bn
             changed = unconverged(new_state, state, mask, threshold, feature_axis)
             state, k = new_state, k + 1
         return k, state, bn
@@ -99,13 +125,21 @@ def run_unfold_loops(model, batch: GraphBatch, state0, state_old0, bn0, transiti
     running = unconverged_flag(state0, state_old0, mask, threshold, feature_axis)
     k = torch.zeros((), dtype=state0.dtype, device=state0.device)
     state, bn = state0, bn0
+    per_step = []
     for step in range(K):
-        new_state, new_bn = transition(state, bn, peel_agg if step == 0 else None)
+        bn_in = take(step) if per_iter else bn
+        new_state, new_bn = transition(state, bn_in, peel_agg if step == 0 else None)
         changed = unconverged_flag(new_state, state, mask, threshold, feature_axis)
         state = torch.where(running, new_state, state)
-        bn = {key: torch.where(running, new_bn[key], bn[key]) for key in bn}
+        kept = {key: torch.where(running, new_bn[key], bn_in[key]) for key in bn_in}
+        if per_iter:
+            per_step.append(kept)
+        else:
+            bn = kept
         k = k + running.to(k.dtype)
         running = running & changed
+    if per_iter:
+        bn = {key: torch.stack([s[key] for s in per_step]) for key in bn0}
     return k, state, bn
 
 
@@ -114,7 +148,9 @@ def _prefixed(prefix: str, stats: Dict[str, torch.Tensor]) -> Dict[str, torch.Te
 
 
 class GNNnodeBased(GraphModel):
-    """Node-focused GNN (inference)."""
+    """Node-focused GNN.  ``per_iteration_bn`` gives every unfolding
+    iteration its own BatchNorm moving statistics (the JAX package's
+    option; off is the reference's shared statistics)."""
 
     name = "node"
 
@@ -125,17 +161,21 @@ class GNNnodeBased(GraphModel):
         state_vect_dim: int,
         max_iteration: int,
         state_threshold: float,
+        *,
+        per_iteration_bn: bool = False,
     ) -> None:
+        assert state_vect_dim >= 0
         assert max_iteration >= 0
         assert state_threshold >= 0
-        if state_vect_dim != 0:
-            raise NotImplementedError("state_vect_dim > 0 is not ported yet; the port runs dim_state == 0")
         super().__init__()
         self.net_state = net_state
         self.net_output = net_output
-        self.state_vect_dim = 0
+        self.state_vect_dim = int(state_vect_dim)
         self.max_iteration = int(max_iteration)
         self.state_threshold = float(state_threshold)
+        self.per_iteration_bn = bool(per_iteration_bn)
+        if self.per_iteration_bn:
+            self.net_state.stack_bn_state(max(self.max_iteration, 1))
 
     def init_parameters(self, generator: torch.Generator) -> None:
         self.net_state.reset_parameters(generator)
@@ -160,13 +200,24 @@ class GNNnodeBased(GraphModel):
             return True
         if batch.bcsr is None:
             return False
-        sd_pad = -(-batch.nodes.shape[1] // 8) * 8
-        return sd_pad <= _TRANSPOSED_BCSR_MAX_STATE_DIM
+        sd = self.state_vect_dim or batch.nodes.shape[1]
+        return -(-sd // 8) * 8 <= _TRANSPOSED_BCSR_MAX_STATE_DIM
 
     def _agg_arcs(self, batch: GraphBatch) -> torch.Tensor:
         if batch.agg_arc_labels is not None:
             return batch.agg_arc_labels
         return aggregate_edges(batch.arc_label, batch.arc_dst, batch.arcnode_weight, batch.num_nodes)
+
+    def _agg_nodes(self, batch: GraphBatch) -> torch.Tensor:
+        if batch.agg_node_labels is not None:
+            return batch.agg_node_labels
+        return batch.aggregate(batch.nodes)
+
+    def _initial_state(self, batch: GraphBatch, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The dim_state > 0 random state₀ (n, ds), row-major."""
+        if generator is None:
+            raise ValueError("state_vect_dim > 0 requires a generator for the random state init")
+        return initial_state(batch.num_nodes, self.state_vect_dim, generator, batch.device)
 
     def unfold(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None):
         """Run the unfolding.  Returns (k, state (N, d), the state net's new
@@ -174,27 +225,44 @@ class GNNnodeBased(GraphModel):
         if self._use_transposed(batch):
             return self._unfold_transposed(batch, training, generator)
         aggregated_arcs = self._agg_arcs(batch)
-        state0 = batch.nodes
+        if self.state_vect_dim > 0:
+            state0 = self._initial_state(batch, generator)
+            constants = [batch.nodes]  # [state | labels | Σstate | Σlabels | Σarcs]
+            tail = [self._agg_nodes(batch), aggregated_arcs]
+            peel = None
+        else:
+            state0 = batch.nodes
+            constants, tail = [], [aggregated_arcs]
+            peel = batch.agg_node_labels
 
         def transition(state, bn, aggregated=None):
             if aggregated is None:
                 aggregated = batch.aggregate(state)
-            inp = torch.cat([state, aggregated, aggregated_arcs], dim=1)
+            inp = torch.cat([state, *constants, aggregated, *tail], dim=1)
             return self.net_state.run(inp, feature_major=False, training=training, mask=batch.node_mask,
                                       generator=generator, bn_state=bn)
 
         return run_unfold_loops(self, batch, state0, torch.ones_like(state0), self.net_state.bn_state(),
-                                transition, training, peel_agg=batch.agg_node_labels)
+                                transition, training, peel_agg=peel)
 
     def _unfold_transposed(self, batch: GraphBatch, training: bool, generator: Optional[torch.Generator]):
         """The unfolding on feature-major (d_pad, N) state: one transpose at
         entry and one at exit, none at the aggregation kernel."""
         n = batch.num_nodes
-        sd = batch.nodes.shape[1]
+        ds = self.state_vect_dim
+        sd = ds or batch.nodes.shape[1]
         sd_pad = -(-sd // 8) * 8
         agg_arcs_t = self._agg_arcs(batch).T
         state0 = torch.zeros((sd_pad, n), dtype=batch.nodes.dtype, device=batch.device)
-        state0[:sd] = batch.nodes.T
+        if ds > 0:
+            # the row-major engine's draw, transposed once at entry
+            state0[:sd] = self._initial_state(batch, generator).T
+            constants, tail = [batch.nodes.T], [self._agg_nodes(batch).T, agg_arcs_t]
+            peel = None
+        else:
+            state0[:sd] = batch.nodes.T
+            constants, tail = [], [agg_arcs_t]
+            peel = None if batch.agg_node_labels is None else batch.agg_node_labels.T
         # pad rows of the old state are zero, so threshold > 0 norms see the
         # row-major engine's sums
         state_old0 = torch.zeros_like(state0)
@@ -203,27 +271,31 @@ class GNNnodeBased(GraphModel):
         def transition(state_t, bn, aggregated=None):
             if aggregated is None:
                 aggregated = aggregate_t(state_t, batch, sd)
-            inp = torch.cat([state_t[:sd], aggregated, agg_arcs_t], dim=0)
+            inp = torch.cat([state_t[:sd], *constants, aggregated, *tail], dim=0)
             new_state, new_bn = self.net_state.run(inp, feature_major=True, training=training,
                                                    mask=batch.node_mask, generator=generator, bn_state=bn)
             if sd_pad != sd:
                 new_state = F.pad(new_state, (0, 0, 0, sd_pad - sd))
             return new_state, new_bn
 
-        peel = None if batch.agg_node_labels is None else batch.agg_node_labels.T
         k, state_t, bn = run_unfold_loops(self, batch, state0, state_old0, self.net_state.bn_state(), transition,
                                           training, peel_agg=peel, feature_axis=0)
         return k, state_t[:sd].T, bn
+
     # -- fused whole-unfold route (ops/fused.py) --------------------------------
     def fold_transition(self):
         """Fold the state net's inference BatchNorm into its Dense layer and
         split the weight rows by the transition-input layout
         ``[state | Σ_neigh state | Σ_in arc labels]``.  Returns
         ``(w_state, w_agg, w_arc, bias, activation)``, or None when the net
-        is not one Dense layer behind an optional BatchNorm and dropout."""
+        is not one Dense layer behind an optional BatchNorm and dropout, or
+        at dim_state > 0 or with per-iteration statistics (one folded weight
+        set cannot carry K moment sets)."""
         from gnnkeras_tpu_torch.models.mlp import _BN_EPS
         from gnnkeras_tpu_torch.ops.fused import _ACTIVATIONS
 
+        if self.state_vect_dim != 0 or self.per_iteration_bn:
+            return None
         program = self.net_state.program
         dense_idx = [i for i, l in enumerate(program) if l[0] == "dense"]
         if len(dense_idx) != 1 or dense_idx[0] != len(program) - 1:
@@ -254,8 +326,10 @@ class GNNnodeBased(GraphModel):
 
     # -- output ----------------------------------------------------------------
     def readout_input(self, state: torch.Tensor, batch: GraphBatch):
-        """(net_output input rows, row mask): the converged state, one row
-        per node."""
+        """(net_output input rows, row mask): the converged state (| labels
+        at dim_state > 0), one row per node."""
+        if self.state_vect_dim:
+            state = torch.cat([state, batch.nodes], dim=1)
         return state, batch.output_row_mask
 
     def node_level_output(self, state: torch.Tensor, batch: GraphBatch, *, training: bool = False,
@@ -291,6 +365,27 @@ class GNNnodeBased(GraphModel):
             f"GNN(type={self.name}, state_dim={self.state_vect_dim}, "
             f"threshold={self.state_threshold}, max_iter={self.max_iteration})"
         )
+
+
+class GNNarcBased(GNNnodeBased):
+    """Arc-focused GNN: readout rows are ``[src state | dst state | arc
+    label]``.  With the batch's incidence pairs and an f32 state, both
+    endpoints' rows come from the select kernel and their gradient from the
+    scatter kernel (``ops/incidence.py``); otherwise from a plain gather."""
+
+    name = "arc"
+
+    def readout_input(self, state: torch.Tensor, batch: GraphBatch):
+        if self.state_vect_dim:
+            state = torch.cat([state, batch.nodes], dim=1)
+        if batch.arc_inc is not None and state.dtype == torch.float32:
+            from gnnkeras_tpu_torch.ops.incidence import incidence_gather
+
+            # the transposed engine hands back a view of its feature-major state
+            s_rows, d_rows = incidence_gather(state.contiguous(), batch.num_arcs, batch.arc_inc)
+        else:
+            s_rows, d_rows = state[batch.arc_src.long()], state[batch.arc_dst.long()]
+        return torch.cat([s_rows, d_rows, batch.arc_label], dim=1), batch.output_row_mask
 
 
 class GNNgraphBased(GNNnodeBased):

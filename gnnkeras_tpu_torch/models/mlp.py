@@ -4,7 +4,8 @@ positions — the layer program of ``gnnkeras_tpu.models.mlp``.
 
 ``MLP`` is an ``nn.Module``: Dense layers hold ``kernel`` (in, out) and
 ``bias`` parameters, BatchNorm holds ``gamma``/``beta`` parameters and
-``moving_mean``/``moving_var`` buffers, so the JAX package's variables copy
+``moving_mean``/``moving_var`` buffers ((f,), or (K, f) after
+``stack_bn_state``), so the JAX package's variables copy
 over leaf for leaf (``convert.variables_from_jax``).  ``apply`` is row-major
 (rows, features), ``apply_t`` feature-major (features, rows).
 
@@ -291,6 +292,17 @@ class MLP(nn.Module):
                     mod.beta.zero_()
                     mod.moving_mean.zero_()
                     mod.moving_var.fill_(1.0)
+
+    def stack_bn_state(self, iterations: int) -> None:
+        """One set of moving statistics per unfolding iteration: every
+        BatchNorm's buffers become (iterations, f), mean 0 and var 1 (the
+        JAX package's ``per_iteration_bn`` stack).  ``run`` then takes one
+        iteration's (f,) slice as ``bn_state``."""
+        for layer, mod in zip(self.program, self.layers):
+            if layer[0] == "batch_norm":
+                like = mod.moving_mean
+                mod.moving_mean = like.new_zeros((iterations, like.shape[-1]))
+                mod.moving_var = like.new_ones((iterations, like.shape[-1]))
 
     def bn_state(self) -> Dict[str, torch.Tensor]:
         """The moving statistics, ``{"layers.{i}.moving_mean": ..., ...}``

@@ -8,7 +8,8 @@ JAX package:
 - the fused route: when the model folds (``fold_transition``; dim_state 0,
   threshold 0, one Dense state layer), a request whose graphs pack into the
   template with every edge inside its 128-node tile runs its whole unfolding
-  in one launch of the ``fused_unfold_t`` kernel;
+  in one launch of the ``fused_unfold_t`` kernel, then the model's readout
+  (for the arc focus, through the ``incidence_select`` kernel);
 - the eval-forward route: every other request (a packing overflow, an edge
   that crosses tiles, or a model that does not fold) runs ``model.forward``.
 
@@ -121,7 +122,8 @@ class Predictor:
             merged, pad_nodes=self.max_nodes, pad_arcs=self.max_arcs, pad_graphs=self.max_graphs,
             device=self.device,
         ))
-        _, _, out, _, _ = self.model.forward(batch, training=False)
+        # the generator draws a dim_state > 0 model's random initial state
+        _, _, out, _, _ = self.model.forward(batch, training=False, generator=self.model.next_rng())
         return out.cpu().numpy()[batch.host_pred_rows]
 
     def _predict_fused(self, merged: GraphObject) -> Optional[np.ndarray]:
@@ -152,7 +154,8 @@ class Predictor:
         nodes_t = torch.zeros((d_pad, batch.num_nodes), dtype=batch.nodes.dtype)
         nodes_t[:d] = batch.nodes.T
         agg_arcs_t = batch.agg_arc_labels.T.contiguous()
-        # this route reads no BCSR operator: leave it on the host
+        # this route reads no BCSR operator: leave it on the host (an arc
+        # model's incidence pairs go to the card with the batch)
         batch, op = batch.replace(bcsr=None).to(self.device), op.to(self.device)
         nodes_t, agg_arcs_t = nodes_t.to(self.device), agg_arcs_t.to(self.device)
 

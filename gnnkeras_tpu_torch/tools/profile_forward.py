@@ -4,9 +4,10 @@
 
 For the bench-scale flagship forward (``GNNgraphBased.forward`` on the
 slot-packed synthetic bench batch), the bench-scale train step
-(``training.trainer.train_step``, Adam, on the same batch) and for
-``Predictor`` requests of 1, 16 and 64 molecules (fused route), it prints
-one JSON line each with the
+(``training.trainer.train_step``, Adam, on the same batch), the arc-focused
+forward and train step (``GNNarcBased`` on ``bench_arc_graph``, the same
+graphs in arc focus) and for ``Predictor`` requests of 1, 16 and 64
+molecules (fused route), it prints one JSON line each with the
 host-clock time (median of 7, synchronised), and, from one window of three
 calls under ``torch.profiler``: the window's wall time per call, the
 device-busy time per call (sum of kernel and memcpy time), the device's idle
@@ -72,7 +73,7 @@ def main() -> int:
         raise SystemExit("profile_forward: needs an NVIDIA card")
 
     from gnnkeras_tpu_torch import Predictor, from_graph_object
-    from gnnkeras_tpu_torch.data.synthetic import bench_graph, flagship_gnn, random_molecules
+    from gnnkeras_tpu_torch.data.synthetic import arc_gnn, bench_arc_graph, bench_graph, flagship_gnn, random_molecules
     from gnnkeras_tpu_torch.ops.fused import build_fused_diag_t
 
     card = torch.cuda.get_device_name(0)
@@ -101,6 +102,22 @@ def main() -> int:
     host = _host_ms(step)
     wall, busy, top = _profile(step)
     emit({"path": "train_step", "host_ms": host, "profiled_wall_ms": wall, "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / wall, "device_ms_by_kernel": top})
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # parallel arcs: bf16 strip fallback
+        arc_batch = from_graph_object(bench_arc_graph(), slot_pack=128, strip_dtype="int8", device="cuda")
+    arc_model = arc_gnn("cuda", seed=0)
+    fwd = lambda: arc_model.forward(arc_batch, training=False)
+    host = _host_ms(fwd)
+    wall, busy, top = _profile(fwd)
+    emit({"path": "arc_forward", "host_ms": host, "profiled_wall_ms": wall, "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / wall, "device_ms_by_kernel": top})
+    arc_model.compile(optimizer="adam:0.01", loss="categorical_crossentropy")
+    step = lambda: train_step(arc_model, arc_batch)
+    host = _host_ms(step)
+    wall, busy, top = _profile(step)
+    emit({"path": "arc_train_step", "host_ms": host, "profiled_wall_ms": wall, "device_busy_ms": busy,
           "device_idle_share": 1.0 - busy / wall, "device_ms_by_kernel": top})
 
     sample = random_molecules(64, seed=1)

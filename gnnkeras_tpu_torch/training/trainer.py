@@ -86,8 +86,9 @@ def train_step(model, batch, generator: Optional[torch.Generator] = None):
 
 
 def eval_step(model, batch) -> dict:
+    # the generator draws a dim_state > 0 model's random initial state
     with torch.no_grad():
-        loss, aux = _objective(model, batch, None, training=False)
+        loss, aux = _objective(model, batch, model.next_rng(), training=False)
     return _step_logs(model, loss, aux["y_pred"], batch)
 
 
@@ -186,12 +187,12 @@ def evaluate(model, sequencer, verbose: int = 0, prefix: str = "") -> dict:
 def predict(model, sequencer) -> np.ndarray:
     """Model outputs for every supervised row, concatenated over batches in
     the caller's (graph, entity) order (``host_pred_rows`` undoes tile
-    packing)."""
+    packing; arc rows keep the merged graph's arc order)."""
     model.build()
     outs = []
     for i in range(len(sequencer)):
         batch = sequencer[i]
-        _, _, out, _, _ = model.forward(batch, training=False)
+        _, _, out, _, _ = model.forward(batch, training=False, generator=model.next_rng())
         out = out.cpu().numpy()
         rows = batch.host_pred_rows
         outs.append(out[rows] if rows is not None else out[batch.target_mask.cpu().numpy()])

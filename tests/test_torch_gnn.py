@@ -70,18 +70,23 @@ def test_strip_forward_aggregates_k_minus_one_times(monkeypatch):
 
 
 def test_dim_state_and_training_not_ported():
-    """dim_state > 0 still raises; the training forward runs (its parity
-    with JAX is in test_torch_training.py) and returns k as a device float
-    and the new moving statistics keyed as in the state dict."""
+    """dim_state > 0 now builds, and its forward needs a generator for the
+    random initial state (its parity with JAX is in
+    test_torch_dim_state.py); the training forward runs (its parity with JAX
+    is in test_torch_training.py) and returns k as a device float and the
+    new moving statistics keyed as in the state dict."""
     import torch
 
     import gnnkeras_tpu_torch.models.gnn as tgnn
     from torch_port_common import _nets, tmlp
 
-    with pytest.raises(NotImplementedError):
-        tgnn.GNNgraphBased(*_nets(tmlp), 5, 5, 0.0)
-    _, tmodel = flagship_pair(seed=1)
     _, tm = merged_pair(raw_molecules(n_graphs=2, seed=2))
-    k, _, out, _, stats = tmodel.forward(tbatch.from_graph_object(tm, device="cpu"), training=True)
+    batch = tbatch.from_graph_object(tm, device="cpu")
+    wide = tgnn.GNNgraphBased(*_nets(tmlp, ds=5), 5, 5, 0.0).build(seed=1, device="cpu")
+    with pytest.raises(ValueError, match="generator"):
+        wide.forward(batch)
+    assert wide.forward(batch, generator=torch.Generator().manual_seed(0))[1].shape == (batch.num_nodes, 5)
+    _, tmodel = flagship_pair(seed=1)
+    k, _, out, _, stats = tmodel.forward(batch, training=True)
     assert isinstance(k, torch.Tensor) and float(k) == 5.0 and out.requires_grad
     assert set(stats) == {name for name, _ in tmodel.named_buffers()}

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from gnnkeras_tpu_torch import kernels
-from gnnkeras_tpu_torch.ops import fused, strip
+from gnnkeras_tpu_torch.ops import fused, incidence, strip
 
 # one thread: the CPU wrapper tests compare bit for bit, and a multi-threaded
 # BLAS may split a product differently from one call to the next
@@ -80,11 +80,40 @@ def test_fused_cpu_wrapper_takes_plain_version():
     assert kernels.LAUNCHES == before
 
 
+def _incidence_inputs(n_arcs=1000, n_node_tiles=12, spread=(3, 3), pad_to=None, seed=0):
+    """Incidence pairs of ``n_arcs`` arcs whose source lies in one of
+    ``spread[0]`` node tiles after its arc tile's own and whose destination in
+    one of the ``spread[1]`` after those, so each arc tile touches up to
+    sum(spread) node tiles; optionally padded to ``pad_to`` pairs."""
+    rng = np.random.default_rng(seed)
+    at = np.arange(n_arcs) // 128
+    src = ((at + rng.integers(0, spread[0], n_arcs)) % n_node_tiles) * 128 + rng.integers(0, 128, n_arcs)
+    dst = ((at + spread[0] + rng.integers(0, spread[1], n_arcs)) % n_node_tiles) * 128 + rng.integers(0, 128, n_arcs)
+    inc = incidence.build_incidence_pairs(src, dst, n_node_tiles * 128)
+    if pad_to is not None:
+        inc = incidence.pad_incidence_pairs(inc, pad_to)
+    return inc, src, dst
+
+
+def test_incidence_cpu_wrappers_take_plain_version():
+    inc, src, dst = _incidence_inputs()
+    g = torch.Generator().manual_seed(3)
+    state = torch.randn(inc.n_node_tiles * 128, 14, generator=g)
+    ct = torch.randn(len(src), 14, generator=g)
+    before = dict(kernels.LAUNCHES)
+    for got, want in zip(incidence.incidence_select(state, inc), incidence._incidence_select_plain(state, inc)):
+        assert torch.equal(got, want)
+    torch.testing.assert_close(incidence.incidence_scatter(ct, 2 * ct, inc),
+                               incidence._incidence_scatter_plain(ct, 2 * ct, inc), rtol=0, atol=0)
+    assert kernels.LAUNCHES == before
+
+
 def test_sources_and_build_paths():
     for name in kernels.SOURCES:
         path = kernels.library_path(name)
         assert path.startswith(kernels.BUILD_DIR) and path.endswith(".so")
-    assert set(kernels.LAUNCHES) == {"strip_matmul", "strip_matmul_t", "fused_unfold_t"}
+    assert set(kernels.LAUNCHES) == {"strip_matmul", "strip_matmul_t", "fused_unfold_t", "incidence_select",
+                                     "incidence_scatter"}
 
 
 # Every width each kernel is built for: the strip kernels' 8-row and 16-row
@@ -123,3 +152,66 @@ def test_fused_kernel_matches_plain_on_card(cuda, d_pad, activation):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert kernels.LAUNCHES["fused_unfold_t"] == before + 2
     assert np.isfinite(got.cpu().numpy()).all()
+
+
+# Widths 1 and 3 (one float per load), 14 (two), 24 and 32 (four, 16 bytes);
+# the scatter's 8-, 16- and 32-feature chunks, and two chunks at 40.  An arc
+# count that is not a multiple of 128 leaves -1 cols in the last arc tile;
+# padding pairs are inert; "above_budget" has more than 10,240 pairs, where
+# the JAX package leaves its fused pair kernel for the XLA-assisted one.
+_INCIDENCE_CASES = {
+    "ragged": dict(n_arcs=1000),
+    "padded": dict(n_arcs=1000, pad_to=12 * 8),
+    "above_budget": dict(n_arcs=1000 * 128 - 37, n_node_tiles=40, spread=(6, 6)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_INCIDENCE_CASES))
+@pytest.mark.parametrize("d", [1, 3, 14, 24, 32, 40])
+def test_incidence_kernels_match_plain_on_card(cuda, d, case):
+    inc, src, dst = _incidence_inputs(seed=d, **_INCIDENCE_CASES[case])
+    if case == "above_budget":
+        assert inc.n_live > 10_240
+    if case == "padded":
+        assert inc.n_pairs > inc.n_live
+    inc = inc.to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    state = torch.randn(inc.n_node_tiles * 128, d, generator=g, device=cuda)
+    state[0, 0] = -0.0
+    state[1, -1] = 1e-40  # a subnormal
+    ct_src = torch.randn(len(src), d, generator=g, device=cuda)
+    ct_dst = torch.randn(len(src), d, generator=g, device=cuda)
+    want_sel = incidence._incidence_select_plain(state, inc)
+    want_sc = incidence._incidence_scatter_plain(ct_src, ct_dst, inc)
+    before = dict(kernels.LAUNCHES)
+    for _ in range(2):
+        y_src, y_dst = incidence.incidence_select(state, inc)
+        out = incidence.incidence_scatter(ct_src, ct_dst, inc)
+        torch.cuda.synchronize()
+        # a copy: bit for bit
+        assert torch.equal(y_src.view(torch.int32), want_sel[0].view(torch.int32))
+        assert torch.equal(y_dst.view(torch.int32), want_sel[1].view(torch.int32))
+        # f32 sums of a node's few incident cotangents in another order
+        torch.testing.assert_close(out, want_sc, rtol=1e-5, atol=1e-5)
+    src_t, dst_t = torch.from_numpy(src).to(cuda).long(), torch.from_numpy(dst).to(cuda).long()
+    assert torch.equal(y_src[: len(src)], state[src_t]) and torch.equal(y_dst[: len(src)], state[dst_t])
+    assert not y_src[len(src):].any()
+    assert kernels.LAUNCHES["incidence_select"] == before["incidence_select"] + 2
+    assert kernels.LAUNCHES["incidence_scatter"] == before["incidence_scatter"] + 2
+
+
+@pytest.mark.cuda
+def test_incidence_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    inc, src, _ = _incidence_inputs()
+    inc = inc.to(cuda)
+    state = torch.zeros(inc.n_node_tiles * 128, 6, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        incidence.incidence_select(state.double(), inc)
+    with pytest.raises(ValueError, match="contiguous"):
+        incidence.incidence_select(torch.zeros(6, inc.n_node_tiles * 128, device=cuda).T, inc)
+    with pytest.raises(ValueError, match="rows"):
+        incidence.incidence_select(state[:-128], inc)
+    ct = torch.zeros(len(src), 6, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        incidence.incidence_scatter(ct.half(), ct.half(), inc)

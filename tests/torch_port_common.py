@@ -88,10 +88,21 @@ def merged_pair(raw, focus="g", mode="average"):
     return jm, tm
 
 
-def _nets(module, dims=(14, 3, 2), focus="g"):
+def arc_targets(raw, t_dim=2, seed=0):
+    """``raw`` with one one-hot target per arc (arc focus), in the order of
+    the arcs after ``GraphObject``'s dedup and sort."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, a, _ in raw:
+        n_arcs = len(np.unique(a, axis=0))
+        out.append((n, a, np.eye(t_dim, dtype=np.float32)[rng.integers(0, t_dim, n_arcs)]))
+    return out
+
+
+def _nets(module, dims=(14, 3, 2), focus="g", ds=0):
     dn, da, dt = dims
-    ins, ls = module.get_inout_dims("state", dn, da, dt, focus, 0)
-    ino, lo = module.get_inout_dims("output", dn, da, dt, focus, 0)
+    ins, ls = module.get_inout_dims("state", dn, da, dt, focus, ds)
+    ino, lo = module.get_inout_dims("output", dn, da, dt, focus, ds)
     net_st = module.MLP(input_dim=ins[0], layers=ls, activations="selu",
                         kernel_initializer="lecun_normal", bias_initializer="lecun_normal")
     net_out = module.MLP(input_dim=ino[0], layers=lo, activations="softmax",
@@ -106,11 +117,11 @@ def perturb_bn(variables, seed):
     for net in variables["params"]:
         for p, s in zip(variables["params"][net], variables["state"][net]):
             if "moving_mean" in s:
-                f = s["moving_mean"].shape[0]
+                f = s["moving_mean"].shape  # (f,), or (K, f) per iteration
                 s["moving_mean"] = jnp.asarray(rng.normal(0.0, 0.3, f).astype(np.float32))
                 s["moving_var"] = jnp.asarray(rng.uniform(0.5, 2.0, f).astype(np.float32))
-                p["gamma"] = jnp.asarray(rng.uniform(0.7, 1.3, f).astype(np.float32))
-                p["beta"] = jnp.asarray(rng.normal(0.0, 0.1, f).astype(np.float32))
+                p["gamma"] = jnp.asarray(rng.uniform(0.7, 1.3, f[-1]).astype(np.float32))
+                p["beta"] = jnp.asarray(rng.normal(0.0, 0.1, f[-1]).astype(np.float32))
     return variables
 
 
@@ -134,6 +145,35 @@ def flagship_pair(seed=0, threshold=0.0, max_iteration=5, node_focus=False, stat
     tm = tcls(*_nets(tmlp, focus=focus), 0, max_iteration, threshold).build(seed=seed, device="cpu")
     tm.load_state_dict(variables_from_jax(jax.tree_util.tree_map(np.asarray, jm.variables)))
     return jm, tm
+
+
+_CLASSES = {"n": "GNNnodeBased", "a": "GNNarcBased", "g": "GNNgraphBased"}
+
+
+def gnn_pair(focus="g", ds=0, seed=0, threshold=0.0, max_iteration=5, per_iteration_bn=False):
+    """A GNN of ``focus`` with the starter architecture at dim_state ``ds``
+    in both packages with the same weights (non-trivial BatchNorm
+    statistics); the port's model lives on the CPU."""
+    kw = dict(per_iteration_bn=per_iteration_bn)
+    jm = getattr(jgnn, _CLASSES[focus])(*_nets(jmlp, focus=focus, ds=ds), ds, max_iteration, threshold, **kw)
+    jm.build(seed=seed)
+    jm.variables = perturb_bn(jm.variables, seed)
+    tm = getattr(tgnn, _CLASSES[focus])(*_nets(tmlp, focus=focus, ds=ds), ds, max_iteration, threshold, **kw)
+    tm.build(seed=seed, device="cpu")
+    tm.load_state_dict(variables_from_jax(jax.tree_util.tree_map(np.asarray, jm.variables)))
+    return jm, tm
+
+
+def jax_init_draw(rng, n, ds):
+    """The JAX package's dim_state > 0 initial state for a forward called
+    with ``rng`` (its unfolding takes the first half of the split)."""
+    rng_loop, _ = jax.random.split(rng)
+    return np.asarray(jgnn.STATE_INIT_STDDEV * jax.random.normal(rng_loop, (n, ds), dtype=jnp.float32))
+
+
+def feed_init_draw(monkeypatch, draw):
+    """Make the port's ``initial_state`` return ``draw`` (the JAX draw)."""
+    monkeypatch.setattr(tgnn, "initial_state", lambda n, ds, generator, device: torch.tensor(draw, device=device))
 
 
 def np_of(x):
