@@ -10,7 +10,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 1. device and build: the card's name and power limit (nvidia-smi), then the
    CUDA kernels of ``gnnkeras_tpu_torch/csrc`` built with nvcc, all at once;
 2. kernel checks: each kernel (the strip aggregation's forward and backward,
-   the fused unfold, the arc readout's incidence select and scatter) against
+   the feature-major fused unfold, the row-major fused unfold with bf16 and
+   f32 blocks, the arc readout's incidence select and scatter) against
    its plain PyTorch version on the card, on the bench-scale flagship batch
    (the synthetic Mutagenicity-shaped batch of ``bench.py``: ~131k nodes,
    ~267k arcs, 4,337 graphs), its arc-focused twin and on a small ragged
@@ -48,7 +49,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ``evaluate``, ``predict`` and timed steps;
 9. dim_state 10 and per-iteration BatchNorm: one train step each of a
    graph-focused GNN on the bench batch, card against CPU (the dim_state 10
-   model's random initial state drawn once on the host and fed to both).
+   model's random initial state drawn once on the host and fed to both);
+10. fused forward: ``GNNgraphBased.forward_fused`` on the bench batch with
+   bf16 and f32 blocks (``build_fused_diag``), one launch of the row-major
+   ``fused_unfold`` kernel each, against ``model.forward`` on the card;
+11. export: the flagship on the bench batch and the arc model on the bench
+   arc batch, saved by ``export_forward``, loaded by ``load_exported`` in a
+   subprocess that imports no model class and run there (the strip kernel
+   4 times, the select once), against ``model.forward``; and the arc model
+   traced on a request of 2 molecules, then run on one of 32 in the same
+   template (more live incidence pairs than the template had);
+12. micro-batching: 256 single-molecule requests from 32 client threads
+   through ``MicroBatcher(max_delay_ms=5)``, each caller's rows against a
+   request of its own, throughput against per-request dispatch;
+13. HTTP: ``GraphServer`` on an ephemeral port of 127.0.0.1, ``/healthz``,
+   ``/metadata`` and 8 concurrent ``/predict`` clients against the
+   in-process ``Predictor``.
 
 Then one JSON line listing the kernels, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``.  The full log also goes to
@@ -242,6 +258,299 @@ def check_fused(model, batch, label, timed):
         res["bytes"], res["nnz"] = n_bytes, nnz
     emit(res)
     return res
+
+
+def fused_rm_operator(batch, dtype):
+    """The row-major whole-unfold operator of a tile-packed batch (built on
+    the host, moved to the batch's device)."""
+    from gnnkeras_tpu_torch.ops.fused import build_fused_diag
+
+    a = int(batch.arc_mask.sum())
+    cpu = batch.to("cpu")
+    op = build_fused_diag(cpu.arc_src.numpy()[:a], cpu.arc_dst.numpy()[:a], cpu.arcnode_weight.numpy()[:a],
+                          cpu.num_nodes, dtype=dtype, device=batch.device)
+    assert op is not None, "every edge of a tile-packed molecule batch lies inside its tile"
+    return op
+
+
+# bf16 blocks, the rounding of the state, weights and aggregate every
+# iteration: against the unrounded f32 forward every element stays within
+# 2^-6 of the state's largest magnitude
+BF16_REL = 2.0**-6
+
+
+def check_fused_rm(model, batch, label, dtype, timed):
+    """The row-major whole-unfold kernel against its plain version on the
+    card, on the flagship's folded transition over ``batch``."""
+    import torch
+    from gnnkeras_tpu_torch.ops.fused import FusedDiagOperator, _fused_unfold_plain, fused_unfold
+
+    op = fused_rm_operator(batch, dtype)
+    with torch.no_grad():
+        w_state, w_agg, w_arc, bias, act = model.fold_transition()
+        ws, wa = w_state.detach().contiguous(), w_agg.detach().contiguous()
+        c = (batch.agg_arc_labels @ w_arc + bias).contiguous()
+        s0 = batch.nodes
+        got = fused_unfold(s0, c, ws, wa, op, 5, act)
+        want = _fused_unfold_plain(s0, c, ws, wa, op.blocks, 5, act)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    beyond = diff > 1e-5 + 1e-5 * want.abs()
+    res = {"phase": "kernel_check", "kernel": "fused_unfold", "batch": label,
+           "storage": str(dtype).replace("torch.", ""), "tiles": int(op.blocks.shape[0]), "d": int(s0.shape[1]),
+           "max_abs_diff": float(diff.max()), "elements_beyond_f32_tolerance": int(beyond.sum()),
+           "rows_beyond_f32_tolerance": int(beyond.any(dim=1).sum()), "rows": int(s0.shape[0])}
+    # Both storages: 5 chained iterations of f32 sums in another order.  With
+    # bf16 blocks the kernel and its plain version round at the same points;
+    # a sum of another order could still land on the neighbouring bf16
+    # value, but a molecule's block rows hold two or three nonzeros, and on
+    # these batches none has (bit-equal on the bench batch on an H100):
+    # such a flip fails the check.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if timed:
+        nnz = int(torch.count_nonzero(op.blocks))
+        n, d = s0.shape
+        n_bytes = op.blocks.numel() * op.blocks.element_size() + 3 * n * d * 4 + 2 * d * d * 4
+        with torch.no_grad():
+            res["kernel_ms"] = graph_ms([lambda: fused_unfold(s0, c, ws, wa, op, 5, act)])
+            copies = [(s0.clone(), c.clone(), ws, wa, FusedDiagOperator(blocks=op.blocks.clone(), tile=op.tile))
+                      for _ in range(cold_copies(n_bytes))]
+            res["kernel_cold_ms"] = graph_ms([lambda o=o: fused_unfold(*o, 5, act) for o in copies])
+            res["cold_copies"] = len(copies)
+            del copies
+            res["plain_ms"] = graph_ms([lambda: _fused_unfold_plain(s0, c, ws, wa, op.blocks, 5, act)])
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, 5 * (2 * d * nnz + 4 * d * d * n))
+        res["library_ms"] = None  # no one PyTorch call computes a whole unfold
+        res["bytes"], res["nnz"] = n_bytes, nnz
+    emit(res)
+    return res
+
+
+def forward_fused_phase(model, b_gpu, ref_batch, dtype, n_arcs, card):
+    """``forward_fused`` on the bench batch against ``model.forward`` on
+    ``ref_batch`` (the same batch with exact f32 aggregation weights), its
+    one ``fused_unfold`` launch and its host time (median of 7,
+    synchronised).  Returns the launches of the call."""
+    import torch
+    from gnnkeras_tpu_torch import kernels
+
+    op = fused_rm_operator(b_gpu, dtype)
+    kernels.reset_launches()
+    state, out, mask = model.forward_fused(b_gpu, op)
+    torch.cuda.synchronize()
+    launches = expect_launches(fused_unfold=1)
+    k, state_ref, out_ref, mask_ref, _ = model.forward(ref_batch)
+    assert k == 5 and torch.equal(mask, mask_ref)
+    real = b_gpu.node_mask
+    s, s_ref, o, o_ref = state[real], state_ref[real], out[mask], out_ref[mask]
+    assert torch.isfinite(o).all() and o.shape == (int(mask.sum()), 2)
+    if dtype == torch.float32:
+        # the JAX package's tolerance for the same check (tests/test_fused.py)
+        torch.testing.assert_close(s, s_ref, rtol=2e-5, atol=2e-6)
+        torch.testing.assert_close(o, o_ref, rtol=2e-5, atol=2e-6)
+    else:
+        # bf16 rounding of the state, the weights and the aggregate every
+        # iteration against the unrounded f32 forward
+        assert float((s - s_ref).abs().max()) <= BF16_REL * float(s_ref.abs().max())
+        assert float((o - o_ref).abs().max()) <= BF16_REL
+    ts = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.forward_fused(b_gpu, op)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t)
+    dt = float(np.median(ts))
+    emit({"phase": "forward_fused", "storage": str(dtype).replace("torch.", ""), "launches": launches,
+          "output_rows": int(mask.sum()), "forward_fused_ms": dt * 1e3, "forward_fused_ms_all": [t * 1e3 for t in ts],
+          "transition_edges_per_s": 5 * n_arcs / dt, "arcs": n_arcs,
+          "state_max_abs_diff": float((s - s_ref).abs().max()), "out_max_abs_diff": float((o - o_ref).abs().max()),
+          "card": card})
+    return launches
+
+
+_LOADER = r"""
+import json, sys, time
+import numpy as np
+import torch
+from gnnkeras_tpu_torch import kernels
+from gnnkeras_tpu_torch.serving import load_exported
+
+for path in sys.argv[1:]:
+    t = time.perf_counter()
+    exported = load_exported(path)
+    load_s = time.perf_counter() - t
+    # the template batch first, then any other batch of its shapes
+    pairs = torch.load(path + "/inputs.pt", weights_only=False)
+    launches, diffs = [], []
+    for batch, want in pairs:
+        kernels.reset_launches()
+        out, mask = exported.call(batch)
+        torch.cuda.synchronize()
+        launches.append({k: v for k, v in kernels.LAUNCHES.items() if v})
+        rows = mask.bool()
+        torch.testing.assert_close(out[rows], want[rows], rtol=1e-5, atol=1e-6)
+        diffs.append(float((out[rows] - want[rows]).abs().max()))
+    batch = pairs[0][0]
+    ts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        exported.call(batch)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t)
+    print(json.dumps({"artifact": path, "model_class": exported.meta["model_class"], "load_s": load_s,
+                      "launches": launches, "max_abs_diff": diffs, "call_ms": float(np.median(ts)) * 1e3}))
+print(json.dumps({"model_modules": sorted(m for m in sys.modules if m.startswith("gnnkeras_tpu_torch.models"))}))
+"""
+
+
+def export_phase(cases, card):
+    """Each (label, model, batches, launches) exported on the card for its
+    first batch, then loaded and run on every batch in one subprocess that
+    imports no model class; its outputs against ``model.forward`` at rtol
+    1e-5, its launches counted there, per call.  Returns the loaded
+    programs' launches on the template batch by label."""
+    import tempfile
+
+    import torch
+    from gnnkeras_tpu_torch import export_forward
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    paths, export_s = {}, {}
+    for label, model, batches, _ in cases:
+        path = paths[label] = os.path.join(root, label)
+        t = time.perf_counter()
+        export_forward(model, batches[0], path)
+        export_s[label] = time.perf_counter() - t
+        torch.save([(b, model.forward(b)[2]) for b in batches], os.path.join(path, "inputs.pt"))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", _LOADER, *paths.values()], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=600)
+    subprocess_s = time.perf_counter() - t
+    assert res.returncode == 0, res.stderr[-4000:]
+    lines = [json.loads(ln) for ln in res.stdout.strip().splitlines()]
+    assert lines[-1] == {"model_modules": []}, lines[-1]
+    got = {}
+    for (label, model, batches, launches), line in zip(cases, lines):
+        assert line["model_class"] == type(model).__name__, (label, line)
+        assert line["launches"] == [launches] * len(batches), (label, line, launches)
+        got[label] = line["launches"][0]
+        emit({"phase": "export", "model": label, "batches": len(batches), "export_s": export_s[label],
+              "load_s": line["load_s"], "call_ms": line["call_ms"], "launches": line["launches"],
+              "max_abs_diff": line["max_abs_diff"], "subprocess_s": subprocess_s, "card": card})
+    for path in paths.values():
+        for name in os.listdir(path):
+            os.remove(os.path.join(path, name))
+        os.rmdir(path)
+    os.rmdir(root)
+    return got
+
+
+def microbatch_phase(model, sample, card, n_requests=256, clients=32):
+    """``n_requests`` single-molecule requests (cycling over ``sample``)
+    from ``clients`` threads through ``MicroBatcher(max_delay_ms=5)``, after
+    one untimed round: each caller's rows against a request of its own,
+    every micro-batch on the fused route, fewer micro-batches than requests;
+    throughput against per-request dispatch, client latencies.  Returns the
+    Predictor."""
+    import threading
+
+    import torch
+    from gnnkeras_tpu_torch import MicroBatcher, Predictor, kernels
+
+    p = Predictor.for_graphs(model, sample, batch_size=32, headroom=1.25, device="cuda").warmup()
+    want = [p([g]) for g in sample]
+    reqs = [i % len(sample) for i in range(n_requests)]
+    t0 = time.perf_counter()
+    for i in reqs:
+        p([sample[i]])
+    t_serial = time.perf_counter() - t0
+
+    mb = MicroBatcher(p, max_delay_ms=5.0)
+    for fut in [mb.submit(sample[i]) for i in range(p.max_graphs)]:  # one untimed micro-batch round
+        fut.result(timeout=60)
+    kernels.reset_launches()
+    mb.launches = 0
+    lat, results, errors = [], {}, []
+    lock = threading.Lock()
+
+    def client(chunk):
+        try:
+            for j in chunk:
+                t = time.perf_counter()
+                out = mb(sample[reqs[j]])
+                with lock:
+                    lat.append(time.perf_counter() - t)
+                    results[j] = out
+        except Exception as exc:  # noqa: BLE001
+            errors.append(exc)
+
+    per = n_requests // clients
+    threads = [threading.Thread(target=client, args=(range(c * per, (c + 1) * per),)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    t_mb = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = mb.launches
+    mb.close()
+    assert not errors, errors
+    assert len(results) == n_requests and launches < n_requests, (len(results), launches)
+    expect_launches(fused_unfold_t=launches)  # every micro-batch on the fused route
+    for j, out in results.items():
+        np.testing.assert_allclose(out, want[reqs[j]], rtol=1e-5, atol=1e-6)
+    lat_ms = np.asarray(lat) * 1e3
+    emit({"phase": "microbatch", "requests": n_requests, "clients": clients, "max_delay_ms": 5.0,
+          "micro_batches": launches, "requests_per_s": n_requests / t_mb,
+          "per_request_dispatch_requests_per_s": n_requests / t_serial, "speedup": t_serial / t_mb,
+          "latency_p50_ms": float(np.percentile(lat_ms, 50)), "latency_p99_ms": float(np.percentile(lat_ms, 99)),
+          "template_nodes": p.max_nodes, "template_graphs": p.max_graphs, "card": card})
+    return p
+
+
+def http_phase(p, sample, card, clients=8):
+    """``GraphServer`` over ``p`` on an ephemeral port of 127.0.0.1:
+    ``/healthz``, ``/metadata`` and ``clients`` concurrent ``/predict``
+    requests of 1-4 molecules each against ``p`` in process."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gnnkeras_tpu_torch.serving_http import GraphServer
+
+    server = GraphServer(p, host="127.0.0.1", port=0).start()
+    try:
+        host, port = server.address[:2]
+        base = f"http://{host}:{port}"
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            assert json.loads(r.read()) == {"status": "ok"}
+        with urllib.request.urlopen(base + "/metadata", timeout=30) as r:
+            meta = json.loads(r.read())
+        assert meta["focus"] == "g" and meta["fused"] and meta["micro_batched"], meta
+        reqs = [sample[4 * i: 4 * i + 1 + i % 4] for i in range(clients)]
+
+        def post(graphs):
+            body = json.dumps({"graphs": [{"nodes": g.nodes.tolist(), "arcs": g.arcs.tolist()} for g in graphs]})
+            req = urllib.request.Request(base + "/predict", data=body.encode(),
+                                         headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return json.loads(r.read())["outputs"], time.perf_counter() - t
+
+        with ThreadPoolExecutor(clients) as pool:
+            answers = list(pool.map(post, reqs))
+        for graphs, (outputs, _) in zip(reqs, answers):
+            assert len(outputs) == len(graphs)
+            np.testing.assert_allclose(np.concatenate([np.asarray(o) for o in outputs]), p(graphs),
+                                       rtol=1e-5, atol=1e-6)
+        micro_batches = server.batcher.launches
+    finally:
+        server.close()
+    emit({"phase": "http", "clients": clients, "metadata": meta, "micro_batches": micro_batches,
+          "request_ms": [t * 1e3 for _, t in answers], "card": card})
 
 
 class _Repeat:
@@ -586,6 +895,9 @@ def main():
     check_strip(b_ragged, "ragged_small", timed=False, name="strip_matmul_t")
     fused_res = check_fused(model, b_bench, "bench", timed=True)
     check_fused(model, b_ragged_fused, "ragged_small", timed=False)
+    rm_res = {dtype: check_fused_rm(model, b_bench, "bench", dtype, timed=True)
+              for dtype in (torch.bfloat16, torch.float32)}
+    check_fused_rm(model, b_ragged_fused, "ragged_small", torch.bfloat16, timed=False)
 
     # the arc-focused twin of the bench batch and its pair lists
     t0 = time.perf_counter()
@@ -665,6 +977,54 @@ def main():
     train_phase("bench_per_iteration_bn", lambda dev: wide_gnn(dev, per_iteration_bn=True), b_bench, b_bench_cpu,
                 card, dict(strip_matmul=4, strip_matmul_t=4))
 
+    # -- 10. fused forward ---------------------------------------------------
+    from gnnkeras_tpu_torch.ops.strip import build_strip_operator
+
+    a = int(bench.arcs.shape[0])
+    # the eval forward's reference with the fused operator's exact f32
+    # weights (the bench strip stores them in bf16)
+    strip_f32 = build_strip_operator(b_bench_cpu.arc_src.numpy()[:a], b_bench_cpu.arc_dst.numpy()[:a],
+                                     b_bench_cpu.arcnode_weight.numpy()[:a], b_bench_cpu.num_nodes,
+                                     dtype="float32", device="cuda")
+    b_ref = b_bench.replace(strip=strip_f32)
+    ff_launches = {dtype: forward_fused_phase(model, b_bench, b_ref, dtype, a, card)["fused_unfold"]
+                   for dtype in (torch.bfloat16, torch.float32)}
+    del b_ref, strip_f32
+
+    # -- 11. export ----------------------------------------------------------
+    from gnnkeras_tpu_torch import graphs_to_batch
+    from gnnkeras_tpu_torch.graph.batch import pad_operators_to_cap
+
+    # arcs padded to the 32 molecules' own arc tiles, so every arc tile
+    # holds real arcs
+    pad_arcs = -(-sum(len(g.arcs) for g in sample[:32]) // 128) * 128
+
+    def arc_request(graphs, seed):
+        """A request-scale arc batch in one padded template, its pair list
+        padded to the cap."""
+        return pad_operators_to_cap(graphs_to_batch(as_arc_focus(graphs, seed), "a", "average", pad_nodes=2048,
+                                                    pad_arcs=pad_arcs, pad_graphs=32, slot_pack=128,
+                                                    strip_dtype="float32", device="cuda"))
+
+    # the arc artifact traced on 2 molecules serves 32 in the same template:
+    # the live pair count is an input of the program, not a constant; a
+    # select that stopped at the template's count would leave the
+    # supervised rows that the later pairs feed at zero
+    arc_small, arc_full = arc_request(sample[:2], 5), arc_request(sample[:32], 6)
+    inc, lo = arc_full.arc_inc, arc_small.arc_inc.n_live
+    assert inc.n_live > lo
+    past = (inc.f_arc_tile[lo:].long()[:, None] * 128 + torch.arange(128, device="cuda"))[inc.f_cols_src[lo:] >= 0]
+    assert arc_full.output_row_mask[past].any()
+    arc_launches = {"strip_matmul": 4, "incidence_select": 1}
+    export_launches = export_phase([("flagship", model, [b_bench], {"strip_matmul": 4}),
+                                    ("arc", arc_model, [b_arc], arc_launches),
+                                    ("arc_request_more_live_pairs", arc_model, [arc_small, arc_full], arc_launches)],
+                                   card)
+
+    # -- 12. micro-batching, 13. HTTP ------------------------------------------
+    mb_predictor = microbatch_phase(model, sample, card)
+    http_phase(mb_predictor, sample, card)
+
     # -- kernels, card, verdict ----------------------------------------------
     def entry(name, source, replaces, launches, res):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -672,8 +1032,11 @@ def main():
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
 
     strip_src = "gnnkeras_tpu_torch/csrc/strip_matmul.cu"
+    fused_src = "gnnkeras_tpu_torch/csrc/fused_unfold.cu"
+    fused_rm_src = "gnnkeras_tpu_torch/csrc/fused_unfold_rm.cu"
     inc_src = "gnnkeras_tpu_torch/csrc/incidence.cu"
     assert arc_serve_launches["incidence_select"] == 5 and arc_serve_launches["fused_unfold_t"] == 4
+    assert export_launches["flagship"]["strip_matmul"] == forward_launches["bench"]
     emit({"kernels": [
         entry("strip_matmul", strip_src, "gnnkeras_tpu/ops/strip.py:278", forward_launches["bench"], strip_bf16),
         entry("strip_matmul_int8", strip_src, "gnnkeras_tpu/ops/strip.py:278",
@@ -682,8 +1045,12 @@ def main():
               train_launches["bench"], strip_t_bf16),
         entry("strip_matmul_t_int8", strip_src, "gnnkeras_tpu/ops/strip.py:278",
               train_launches["bench_without_parallel_arcs"], strip_t_int8),
-        entry("fused_unfold_t", "gnnkeras_tpu_torch/csrc/fused_unfold.cu", "gnnkeras_tpu/ops/fused.py:241",
-              serve_launches["fused_unfold_t"], fused_res),
+        entry("fused_unfold_t", fused_src, "gnnkeras_tpu/ops/fused.py:241", serve_launches["fused_unfold_t"],
+              fused_res),
+        entry("fused_unfold", fused_rm_src, "gnnkeras_tpu/ops/fused.py:107", ff_launches[torch.bfloat16],
+              rm_res[torch.bfloat16]),
+        entry("fused_unfold_f32", fused_rm_src, "gnnkeras_tpu/ops/fused.py:107", ff_launches[torch.float32],
+              rm_res[torch.float32]),
         entry("incidence_select", inc_src, "gnnkeras_tpu/ops/incidence.py:375", arc_forward["incidence_select"],
               sel_res),
         entry("incidence_scatter", inc_src, "gnnkeras_tpu/ops/incidence.py:375", arc_train["incidence_scatter"],

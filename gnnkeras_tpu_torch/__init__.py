@@ -5,7 +5,13 @@ It imports neither JAX nor the ``gnnkeras_tpu`` package.  Entry points take
 running on the CPU; pass ``device="cpu"`` to run the plain PyTorch versions
 of the kernels.  Kernels are hand-written CUDA in ``csrc/``, built at first
 use (``gnnkeras_tpu_torch.kernels``).
+
+The names below are imported on first access, so that a process that only
+runs an exported artifact (``load_exported``) never imports the model
+classes.
 """
+
+import importlib
 
 import torch
 
@@ -14,21 +20,31 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from gnnkeras_tpu_torch.graph.batch import GraphBatch, from_graph_object, graphs_to_batch  # noqa: E402
-from gnnkeras_tpu_torch.graph.graph import GraphObject  # noqa: E402
-from gnnkeras_tpu_torch.models.gnn import GNNarcBased, GNNgraphBased, GNNnodeBased  # noqa: E402
-from gnnkeras_tpu_torch.models.mlp import MLP, get_inout_dims  # noqa: E402
-from gnnkeras_tpu_torch.serving import Predictor  # noqa: E402
+_EXPORTS = {
+    "GraphBatch": "gnnkeras_tpu_torch.graph.batch",
+    "from_graph_object": "gnnkeras_tpu_torch.graph.batch",
+    "graphs_to_batch": "gnnkeras_tpu_torch.graph.batch",
+    "GraphObject": "gnnkeras_tpu_torch.graph.graph",
+    "GNNarcBased": "gnnkeras_tpu_torch.models.gnn",
+    "GNNgraphBased": "gnnkeras_tpu_torch.models.gnn",
+    "GNNnodeBased": "gnnkeras_tpu_torch.models.gnn",
+    "MLP": "gnnkeras_tpu_torch.models.mlp",
+    "get_inout_dims": "gnnkeras_tpu_torch.models.mlp",
+    "MicroBatcher": "gnnkeras_tpu_torch.serving",
+    "Predictor": "gnnkeras_tpu_torch.serving",
+    "export_forward": "gnnkeras_tpu_torch.serving",
+    "load_exported": "gnnkeras_tpu_torch.serving",
+}
 
-__all__ = [
-    "GraphBatch",
-    "GraphObject",
-    "GNNarcBased",
-    "GNNgraphBased",
-    "GNNnodeBased",
-    "MLP",
-    "Predictor",
-    "from_graph_object",
-    "get_inout_dims",
-    "graphs_to_batch",
-]
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module 'gnnkeras_tpu_torch' has no attribute {name!r}")
+    return getattr(importlib.import_module(module), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -44,6 +44,9 @@
 // the (N, d) output is written in contiguous runs.
 //
 // Pairs from n_live on are inert padding (all cols -1) and are not walked.
+// n_live is read on the device, from the one-element array the pairs carry:
+// a program saved by torch.export takes it from each batch it is called
+// with, never from the batch it was traced on.
 //
 // Entries: gnn_incidence_select and gnn_incidence_scatter, plain C functions
 // bound with ctypes.  Each launches on the caller's stream, allocates
@@ -66,7 +69,7 @@ template <int VEC>
 __global__ void __launch_bounds__(SELECT_THREADS) incidence_select_kernel(
     const float* __restrict__ state, const int* __restrict__ f_start, const int* __restrict__ f_node_tile,
     const int* __restrict__ f_cols_src, const int* __restrict__ f_cols_dst, float* __restrict__ y_src,
-    float* __restrict__ y_dst, int d, int n_live) {
+    float* __restrict__ y_dst, int d, const int* __restrict__ n_live) {
   using V = typename Vec<VEC>::T;
   __shared__ int cols[2][TILE];
   __shared__ int hit[2][TILE];
@@ -78,7 +81,7 @@ __global__ void __launch_bounds__(SELECT_THREADS) incidence_select_kernel(
   V* out[2] = {reinterpret_cast<V*>(y_src), reinterpret_cast<V*>(y_dst)};
 
   for (int i = threadIdx.x; i < 2 * TILE; i += SELECT_THREADS) hit[i / TILE][i % TILE] = 0;
-  const int p_end = min(f_start[j + 1], n_live);
+  const int p_end = min(f_start[j + 1], *n_live);
   for (int p = f_start[j]; p < p_end; ++p) {
     __syncthreads();  // the previous pair's cols are read out
     for (int i = threadIdx.x; i < 2 * TILE; i += SELECT_THREADS) {
@@ -114,7 +117,7 @@ template <int DC>
 __global__ void __launch_bounds__(TILE) incidence_scatter_kernel(
     const float* __restrict__ ct_src, const float* __restrict__ ct_dst, int n_rows,
     const int* __restrict__ b_start, const int* __restrict__ b_arc_tile, const int* __restrict__ b_cols_src,
-    const int* __restrict__ b_cols_dst, float* __restrict__ out, int d, int n_live) {
+    const int* __restrict__ b_cols_dst, float* __restrict__ out, int d, const int* __restrict__ n_live) {
   constexpr int DCP = DC + 1;  // padded rows: thread c reads row r at bank (r * DCP + f) mod 32
   __shared__ float cts[2][TILE * DCP];
   __shared__ int cols[2][TILE];
@@ -127,7 +130,7 @@ __global__ void __launch_bounds__(TILE) incidence_scatter_kernel(
 #pragma unroll
   for (int f = 0; f < DC; ++f) acc[f] = 0.f;
 
-  const int p_end = min(b_start[j + 1], n_live);
+  const int p_end = min(b_start[j + 1], *n_live);
   for (int p = b_start[j]; p < p_end; ++p) {
     __syncthreads();  // the previous pair's stage is read out
     const long arc0 = static_cast<long>(b_arc_tile[p]) * TILE;
@@ -171,8 +174,8 @@ __global__ void __launch_bounds__(TILE) incidence_scatter_kernel(
 extern "C" {
 
 int gnn_incidence_select(const void* state, const void* f_start, const void* f_node_tile, const void* f_cols_src,
-                         const void* f_cols_dst, void* y_src, void* y_dst, int d, int n_arc_tiles, int n_live,
-                         int vec, void* stream) {
+                         const void* f_cols_dst, void* y_src, void* y_dst, int d, int n_arc_tiles,
+                         const void* n_live, int vec, void* stream) {
   if (d < 1 || n_arc_tiles < 1 || d % vec) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_arc_tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -180,7 +183,7 @@ int gnn_incidence_select(const void* state, const void* f_start, const void* f_n
     kernel<<<grid, SELECT_THREADS, 0, s>>>(
         static_cast<const float*>(state), static_cast<const int*>(f_start), static_cast<const int*>(f_node_tile),
         static_cast<const int*>(f_cols_src), static_cast<const int*>(f_cols_dst), static_cast<float*>(y_src),
-        static_cast<float*>(y_dst), d, n_live);
+        static_cast<float*>(y_dst), d, static_cast<const int*>(n_live));
   };
   switch (vec) {
     case 4: args(incidence_select_kernel<4>); break;
@@ -193,7 +196,7 @@ int gnn_incidence_select(const void* state, const void* f_start, const void* f_n
 
 int gnn_incidence_scatter(const void* ct_src, const void* ct_dst, int n_rows, const void* b_start,
                           const void* b_arc_tile, const void* b_cols_src, const void* b_cols_dst, void* out, int d,
-                          int n_node_tiles, int n_live, void* stream) {
+                          int n_node_tiles, const void* n_live, void* stream) {
   if (d < 1 || n_node_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto launch = [&](auto kernel, int dc) {
@@ -201,7 +204,7 @@ int gnn_incidence_scatter(const void* ct_src, const void* ct_dst, int n_rows, co
     kernel<<<grid, TILE, 0, s>>>(
         static_cast<const float*>(ct_src), static_cast<const float*>(ct_dst), n_rows,
         static_cast<const int*>(b_start), static_cast<const int*>(b_arc_tile), static_cast<const int*>(b_cols_src),
-        static_cast<const int*>(b_cols_dst), static_cast<float*>(out), d, n_live);
+        static_cast<const int*>(b_cols_dst), static_cast<float*>(out), d, static_cast<const int*>(n_live));
   };
   if (d <= 8) {
     launch(incidence_scatter_kernel<8>, 8);

@@ -23,6 +23,7 @@ from gnnkeras_tpu_torch import native
 from gnnkeras_tpu_torch.graph.graph import GraphObject
 from gnnkeras_tpu_torch.ops.segment import segment_sum
 from gnnkeras_tpu_torch.utils.dtypes import floatx, resolve_device
+from gnnkeras_tpu_torch.utils.pytree import register_tensor_dataclass
 
 
 def _round_up(x: int, m: int) -> int:
@@ -65,6 +66,9 @@ class CompactReadout:
         return dataclasses.replace(
             self, **{f.name: _move(getattr(self, f.name), device) for f in dataclasses.fields(self)}
         )
+
+
+register_tensor_dataclass(CompactReadout, static=("n_span_pad",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +180,9 @@ class GraphBatch:
         from gnnkeras_tpu_torch.ops.segment import graph_readout
 
         return graph_readout(node_out, self.graph_of_node, self.nodegraph_weight, self.num_graphs)
+
+
+register_tensor_dataclass(GraphBatch, static=("focus", "dim_node_label", "host_pred_rows"), host=("host_pred_rows",))
 
 
 def _scatter_targets(g, focus, n_rows, n_graphs_pad, pos=None, graph_rows=None):

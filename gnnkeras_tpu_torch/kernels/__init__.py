@@ -2,13 +2,19 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at first use, into ``gnnkeras_tpu_torch/_build/`` (named
-by the hash of the source, so an edited source is rebuilt), and loaded with
+by the hash of the source and the shared headers, so an edit rebuilds), and loaded with
 ``ctypes``.  Nothing is downloaded and nothing outside the package directory
 is written.  ``build_all`` starts one ``nvcc`` per source at once.
 
 ``LAUNCHES`` holds one plain launch counter per kernel.  The wrappers in
 ``ops/`` add one to their count right after a launch that returned no error,
 and nowhere else; ``reset_launches`` sets every count to 0.
+
+The kernels that ``model.forward(training=False)`` reaches are also
+``torch.library`` custom operators (``gnnkeras_tpu_torch::strip_matmul`` in
+``ops/strip.py``, ``gnnkeras_tpu_torch::incidence_select`` in
+``ops/incidence.py``), which a program saved by ``serving.export_forward``
+calls; importing those two modules registers them.
 """
 
 from __future__ import annotations
@@ -41,15 +47,17 @@ _ENTRIES = {
         "gnn_strip_matmul_t": [_P, _P, _I, _P, _P, _I, _I, _P],
     },
     "fused_unfold": {"gnn_fused_unfold_t": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "fused_unfold_rm": {"gnn_fused_unfold": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]},
     "incidence": {
-        "gnn_incidence_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "gnn_incidence_scatter": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "gnn_incidence_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+        "gnn_incidence_scatter": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     },
 }
 SOURCES = tuple(_ENTRIES)
 
 LAUNCHES: Dict[str, int] = {
-    "strip_matmul": 0, "strip_matmul_t": 0, "fused_unfold_t": 0, "incidence_select": 0, "incidence_scatter": 0,
+    "strip_matmul": 0, "strip_matmul_t": 0, "fused_unfold_t": 0, "fused_unfold": 0, "incidence_select": 0,
+    "incidence_scatter": 0,
 }
 
 _lock = threading.Lock()
@@ -77,9 +85,14 @@ def _source(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(_source(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library of source ``name``, named by the hash of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [_source(name)] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_log(name: str) -> str:
@@ -148,3 +161,4 @@ def check(err: int, kernel: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+

@@ -13,6 +13,11 @@ One unfolding loop, two modes (``run_unfold_loops``):
   read on the host inside the loop; autograd differentiates through the
   steps (activations are stored, no rematerialisation).
 
+``fixed_length=True`` runs inference in the training loop's shape (no host
+read of the flag, BatchNorm on its moving statistics, ``k`` a device
+scalar), with the same state as the ``while`` loop at every threshold: the
+form ``torch.export`` can trace (``serving.export_forward``).
+
 With ``per_iteration_bn`` the state net keeps one set of moving statistics
 per iteration ((K, f) buffers): training reads and writes set k at step k,
 inference reads set min(k, K − 1).
@@ -94,13 +99,14 @@ def aggregate_t(state_t: torch.Tensor, batch: GraphBatch, sd: int) -> torch.Tens
 
 
 def run_unfold_loops(model, batch: GraphBatch, state0, state_old0, bn0, transition, training: bool,
-                     peel_agg=None, feature_axis: int = 1):
+                     peel_agg=None, feature_axis: int = 1, fixed_length: bool = False):
     """The one unfolding loop.  ``transition(state, bn_state, aggregated=None)``
     is one step returning (new state, new moving statistics); ``peel_agg``
     (``Adjᵀ·labels``) replaces the aggregation of iteration 0.  With
     ``model.per_iteration_bn`` the statistics in ``bn0`` are (K, f) stacks
     and step k takes slice k.  Returns (k, state, moving statistics): ``k``
-    an int in inference, a 0-dim float tensor on the device in training."""
+    an int in inference, a 0-dim float tensor on the device in training and
+    with ``fixed_length``."""
     K = model.max_iteration
     threshold = model.state_threshold
     mask = batch.node_mask
@@ -109,7 +115,7 @@ def run_unfold_loops(model, batch: GraphBatch, state0, state_old0, bn0, transiti
     def take(i):
         return {key: value[i] for key, value in bn0.items()}
 
-    if not training:
+    if not training and not fixed_length:
         state, bn = state0, bn0
         changed = unconverged(state0, state_old0, mask, threshold, feature_axis)
         k = 0
@@ -219,11 +225,13 @@ class GNNnodeBased(GraphModel):
             raise ValueError("state_vect_dim > 0 requires a generator for the random state init")
         return initial_state(batch.num_nodes, self.state_vect_dim, generator, batch.device)
 
-    def unfold(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None):
+    def unfold(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None,
+               fixed_length: bool = False):
         """Run the unfolding.  Returns (k, state (N, d), the state net's new
-        moving statistics); see ``run_unfold_loops`` for ``k``."""
+        moving statistics); see ``run_unfold_loops`` for ``k`` and
+        ``fixed_length``."""
         if self._use_transposed(batch):
-            return self._unfold_transposed(batch, training, generator)
+            return self._unfold_transposed(batch, training, generator, fixed_length)
         aggregated_arcs = self._agg_arcs(batch)
         if self.state_vect_dim > 0:
             state0 = self._initial_state(batch, generator)
@@ -243,9 +251,10 @@ class GNNnodeBased(GraphModel):
                                       generator=generator, bn_state=bn)
 
         return run_unfold_loops(self, batch, state0, torch.ones_like(state0), self.net_state.bn_state(),
-                                transition, training, peel_agg=peel)
+                                transition, training, peel_agg=peel, fixed_length=fixed_length)
 
-    def _unfold_transposed(self, batch: GraphBatch, training: bool, generator: Optional[torch.Generator]):
+    def _unfold_transposed(self, batch: GraphBatch, training: bool, generator: Optional[torch.Generator],
+                           fixed_length: bool = False):
         """The unfolding on feature-major (d_pad, N) state: one transpose at
         entry and one at exit, none at the aggregation kernel."""
         n = batch.num_nodes
@@ -279,7 +288,7 @@ class GNNnodeBased(GraphModel):
             return new_state, new_bn
 
         k, state_t, bn = run_unfold_loops(self, batch, state0, state_old0, self.net_state.bn_state(), transition,
-                                          training, peel_agg=peel, feature_axis=0)
+                                          training, peel_agg=peel, feature_axis=0, fixed_length=fixed_length)
         return k, state_t[:sd].T, bn
 
     # -- fused whole-unfold route (ops/fused.py) --------------------------------
@@ -324,6 +333,28 @@ class GNNnodeBased(GraphModel):
             return None
         return w[:d], w[d : 2 * d], w[2 * d :], b, act
 
+    def forward_fused(self, batch: GraphBatch, op, n_iter: Optional[int] = None):
+        """Inference forward with the whole unfolding in one launch of the
+        row-major ``fused_unfold`` kernel (``ops/fused.py``): for tile-packed
+        batches whose every edge lies in its tile (``op`` from
+        ``build_fused_diag``), dim_state 0 and the single-Dense state net.
+        ``n_iter`` (default ``max_iteration``) steps run whatever the
+        threshold.  Returns (state, out, out_mask)."""
+        from gnnkeras_tpu_torch.ops.fused import fused_unfold
+
+        folded = self.fold_transition()
+        if folded is None:
+            raise ValueError("state net / model config is not fusable (see fold_transition)")
+        if batch.agg_arc_labels is None:
+            raise ValueError("fused forward needs the precomputed agg_arc_labels")
+        w_state, w_agg, w_arc, bias, act = folded
+        with torch.no_grad():
+            const = batch.agg_arc_labels @ w_arc + bias
+            state = fused_unfold(batch.nodes, const, w_state, w_agg, op,
+                                 self.max_iteration if n_iter is None else n_iter, act)
+            out, out_mask, _ = self.apply_output(state, batch)
+        return state, out, out_mask
+
     # -- output ----------------------------------------------------------------
     def readout_input(self, state: torch.Tensor, batch: GraphBatch):
         """(net_output input rows, row mask): the converged state (| labels
@@ -347,16 +378,20 @@ class GNNnodeBased(GraphModel):
         statistics)."""
         return self.node_level_output(state, batch, training=training, generator=generator)
 
-    def forward(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None):
+    def forward(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None,
+                fixed_length: bool = False):
         """Full forward: (k, state, out, out_mask, new moving statistics).
         ``out`` is row-aligned with the focus entity and gated by
         ``out_mask``; the statistics are keyed as in the state dict
         (``net_state.layers.0.moving_mean``, ...).  Inference runs without
         autograd and returns the current statistics; training
         differentiates and returns the updated ones (the buffers are not
-        written).  ``generator`` draws the dropout masks in training."""
+        written).  ``generator`` draws the dropout masks in training.
+        ``fixed_length`` selects the exportable inference loop
+        (``run_unfold_loops``)."""
         with torch.set_grad_enabled(training and torch.is_grad_enabled()):
-            k, state, bn_state = self.unfold(batch, training=training, generator=generator)
+            k, state, bn_state = self.unfold(batch, training=training, generator=generator,
+                                             fixed_length=fixed_length)
             out, out_mask, bn_out = self.apply_output(state, batch, training=training, generator=generator)
         return k, state, out, out_mask, {**_prefixed("net_state", bn_state), **_prefixed("net_output", bn_out)}
 

@@ -26,6 +26,7 @@ import torch
 from gnnkeras_tpu_torch import native
 from gnnkeras_tpu_torch.ops.segment import segment_sum
 from gnnkeras_tpu_torch.utils.dtypes import floatx
+from gnnkeras_tpu_torch.utils.pytree import register_tensor_dataclass
 
 TILE = 128
 
@@ -51,6 +52,9 @@ class BcsrMatrix:
             self, blocks=self.blocks.to(device), src_tile=self.src_tile.to(device),
             dst_tile=self.dst_tile.to(device),
         )
+
+
+register_tensor_dataclass(BcsrMatrix, static=("n_src_tiles", "n_dst_tiles", "tile"))
 
 
 def build_bcsr(

@@ -1,19 +1,32 @@
-"""Whole-unfold kernel for tile-packed batches whose every edge lies inside
-its 128-node tile, on feature-major state (the transposed variant of
-``gnnkeras_tpu.ops.fused``).
+"""Whole-unfold kernels for tile-packed batches whose every edge lies inside
+its 128-node tile, counterpart of ``gnnkeras_tpu.ops.fused``.
 
 Each tile's whole ``max_iteration`` unfolding is independent of every other
-tile, so it runs in one launch:
+tile, so it runs in one launch.  Two layouts, as in the JAX package:
 
-    per tile t, per iteration:
-        agg = s · A_t                           (A_t bf16, src rows × dst cols)
-        s   = act(W_sᵀ·s + W_aᵀ·agg + c)
+- feature-major (the serving route of ``Predictor``), ``fused_unfold_t``:
+
+      per tile t, per iteration:
+          agg = s · A_t                         (A_t bf16, src rows × dst cols)
+          s   = act(W_sᵀ·s + W_aᵀ·agg + c)
+
+- row-major (``GNNnodeBased.forward_fused``), ``fused_unfold``, with the
+  state (N, d) unpadded and the blocks in bf16 or f32 (dst rows × src cols):
+
+      per tile t, per iteration, cd the blocks' dtype:
+          sc  = cd(s)
+          agg = A_t · sc                        (f32 sums)
+          s   = act(sc · cd(W_s) + cd(agg) · cd(W_a) + c)
+
+  With bf16 blocks the state, both weights and the aggregate are rounded to
+  bf16 (to nearest even) before every product, as the JAX kernel rounds
+  them; with f32 blocks nothing is rounded.
 
 Inference BatchNorm folds into the Dense weights and the batch-constant arc
-label sum into ``c`` (``GNNnodeBased.fold_transition``).  ``fused_unfold_t``
-is the kernel (``csrc/fused_unfold.cu``); on a CPU tensor it runs its plain
-PyTorch version ``_fused_unfold_t_plain``.  The row-major ``fused_unfold``
-comes with a later slice.
+label sum into ``c`` (``GNNnodeBased.fold_transition``).  The kernels are
+``csrc/fused_unfold.cu`` and ``csrc/fused_unfold_rm.cu``; on a CPU tensor
+each wrapper runs its plain PyTorch version (``_fused_unfold_t_plain``,
+``_fused_unfold_plain``).
 """
 
 from __future__ import annotations
@@ -57,6 +70,45 @@ class FusedDiagOperator:
         return dataclasses.replace(self, blocks=self.blocks.to(device))
 
 
+def _diag_blocks(src, dst, weight, n_padded, tile, dst_rows: bool):
+    """(T, tile, tile) f32 host blocks, dst rows × src cols when
+    ``dst_rows``, else src rows × dst cols; None when an edge crosses a tile
+    (or ``n_padded`` is not a tile multiple)."""
+    if n_padded % tile != 0:
+        return None
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    weight = np.asarray(weight, dtype=np.float64)
+    live = weight != 0.0
+    src, dst, weight = src[live], dst[live], weight[live]
+    if np.any(src // tile != dst // tile):
+        return None
+    blocks = np.zeros((n_padded // tile, tile, tile), np.float32)
+    rows, cols = (dst, src) if dst_rows else (src, dst)
+    native.scatter_add_3d(blocks, dst // tile, rows % tile, cols % tile, weight)
+    return blocks
+
+
+def build_fused_diag(
+    src: np.ndarray,
+    dst: np.ndarray,
+    weight: np.ndarray,
+    n_padded: int,
+    dtype=torch.bfloat16,
+    tile: int = TILE,
+    device="cpu",
+) -> Optional[FusedDiagOperator]:
+    """Blocks for the row-major ``fused_unfold``, stored dst rows × src cols
+    (``agg_t = A_t·s_t`` per tile), in bf16 or f32.  Returns None when any
+    edge crosses a tile boundary."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"build_fused_diag: blocks are stored in bfloat16 or float32, not {dtype}")
+    blocks = _diag_blocks(src, dst, weight, n_padded, tile, dst_rows=True)
+    if blocks is None:
+        return None
+    return FusedDiagOperator(blocks=torch.from_numpy(blocks).to(dtype).to(device), tile=tile)
+
+
 def build_fused_diag_t(
     src: np.ndarray,
     dst: np.ndarray,
@@ -68,17 +120,9 @@ def build_fused_diag_t(
 ) -> Optional[FusedDiagOperator]:
     """Blocks stored src rows × dst cols (``aggᵀ = sᵀ·A_t`` per tile).
     Returns None when any edge crosses a tile boundary."""
-    if n_padded % tile != 0:
+    blocks = _diag_blocks(src, dst, weight, n_padded, tile, dst_rows=False)
+    if blocks is None:
         return None
-    src = np.asarray(src, dtype=np.int64)
-    dst = np.asarray(dst, dtype=np.int64)
-    weight = np.asarray(weight, dtype=np.float64)
-    live = weight != 0.0
-    src, dst, weight = src[live], dst[live], weight[live]
-    if np.any(src // tile != dst // tile):
-        return None
-    blocks = np.zeros((n_padded // tile, tile, tile), np.float32)
-    native.scatter_add_3d(blocks, dst // tile, src % tile, dst % tile, weight)
     return FusedDiagOperator(blocks=torch.from_numpy(blocks).to(dtype).to(device), tile=tile)
 
 
@@ -158,4 +202,107 @@ def _fused_unfold_t_cuda(state0_t, const_t, ws_t, wa_t, blocks, n_iter, activati
         )
     kernels.check(err, "fused_unfold_t")
     kernels.LAUNCHES["fused_unfold_t"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# Row-major whole unfold (kernel row 4)
+# --------------------------------------------------------------------------
+
+# the widths the row-major kernel is built for: d is padded on chip to 16 or 32
+MAX_ROW_MAJOR_D = 32
+
+
+def _fused_unfold_plain(state0, const, w_state, w_agg, blocks, n_iter: int, activation: str):
+    """``n_iter`` iterations of per-tile ``A_t·sc`` then the transition, in
+    plain PyTorch, rounding to the blocks' dtype where the kernel does (the
+    weights once, the state and the aggregate every iteration).  bf16 values
+    are upcast before every product (a bf16 product is exact in f32), so
+    only the f32 summation order can differ from the kernel."""
+    act = _ACTIVATIONS[activation]
+    cd = blocks.dtype
+    n, d = state0.shape
+    t = blocks.shape[0]
+    a = blocks.to(torch.float32)
+    rnd = lambda x: x.to(cd).to(torch.float32)
+    ws, wa = rnd(w_state), rnd(w_agg)
+    s = state0.to(torch.float32)
+    for _ in range(n_iter):
+        sc = rnd(s)
+        agg = torch.bmm(a, sc.reshape(t, TILE, d)).reshape(n, d)
+        s = act(sc @ ws + rnd(agg) @ wa + const)
+    return s
+
+
+def fused_unfold(
+    state0: torch.Tensor,
+    const: torch.Tensor,
+    w_state: torch.Tensor,
+    w_agg: torch.Tensor,
+    op: FusedDiagOperator,
+    n_iter: int,
+    activation: str = "selu",
+    tiles_per_step: int = 8,
+) -> torch.Tensor:
+    """Whole unfold on row-major state: state0 (N, d) f32, const (N, h) f32
+    (folded BatchNorm shift, arc-label sum and bias), w_state / w_agg the
+    folded (d, h) Dense rows; d == h.  Returns the (N, h) state after
+    ``n_iter`` iterations.  ``tiles_per_step`` is the JAX kernel's grid
+    blocking on the TPU; it is validated and changes neither the result nor
+    the CUDA launch (one block per tile).  A CPU tensor takes the plain
+    version; a CUDA tensor launches ``gnn_fused_unfold``."""
+    n, d = state0.shape
+    if w_state.shape != (d, d) or w_agg.shape != (d, d) or tuple(const.shape) != (n, d):
+        raise ValueError(
+            f"fused_unfold: the state width must be invariant across iterations: state {tuple(state0.shape)}, "
+            f"const {tuple(const.shape)}, w_state {tuple(w_state.shape)}, w_agg {tuple(w_agg.shape)}"
+        )
+    if activation not in _ACTIVATIONS:
+        raise ValueError(f"fused_unfold: unsupported activation {activation!r}")
+    if int(tiles_per_step) != tiles_per_step or tiles_per_step < 1:
+        raise ValueError(f"fused_unfold: tiles_per_step must be a positive int, got {tiles_per_step!r}")
+    t = op.blocks.shape[0]
+    if op.tile != TILE or tuple(op.blocks.shape[1:]) != (TILE, TILE) or n != t * TILE:
+        raise ValueError(f"fused_unfold: state has {n} rows, operator covers {t * op.tile}")
+    cd = op.blocks.dtype
+    if cd not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_unfold: blocks must be bfloat16 or float32, got {cd}")
+    ws, wa = (w.detach().to(torch.float32).contiguous() for w in (w_state, w_agg))
+    if state0.device.type == "cpu":
+        return _fused_unfold_plain(state0, const, ws, wa, op.blocks, int(n_iter), activation)
+    return _fused_unfold_cuda(state0, const, ws, wa, op.blocks, int(n_iter), activation)
+
+
+_BLOCK_KIND = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _fused_unfold_cuda(state0, const, ws, wa, blocks, n_iter, activation):
+    from gnnkeras_tpu_torch import kernels
+
+    if state0.device.type != "cuda":
+        raise ValueError(f"fused_unfold: no kernel for device {state0.device}")
+    operands = (state0, const, ws, wa, blocks)
+    if any(x.device != state0.device for x in operands):
+        raise ValueError("fused_unfold: operands on different devices")
+    if not all(x.is_contiguous() for x in operands):
+        raise ValueError("fused_unfold: operands must be contiguous")
+    if state0.dtype != torch.float32 or const.dtype != torch.float32:
+        raise ValueError("fused_unfold: state and const must be float32")
+    d = state0.shape[1]
+    if not 1 <= d <= MAX_ROW_MAJOR_D:
+        raise ValueError(f"fused_unfold: the kernel takes state widths 1 to {MAX_ROW_MAJOR_D}, got {d}")
+    if blocks.data_ptr() % 16:
+        raise ValueError("fused_unfold: the blocks must start on a 16-byte boundary")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (state0, const)):
+        raise NotImplementedError("fused_unfold is inference-only; call under torch.no_grad()")
+    out = torch.empty_like(state0)
+    lib = kernels.load("fused_unfold_rm")
+    with torch.cuda.device(state0.device):
+        err = lib.gnn_fused_unfold(
+            state0.data_ptr(), const.data_ptr(), ws.data_ptr(), wa.data_ptr(), blocks.data_ptr(),
+            _BLOCK_KIND[blocks.dtype], out.data_ptr(), d, blocks.shape[0], n_iter, _ACT_CODES[activation],
+            kernels.stream_of(state0),
+        )
+    kernels.check(err, "fused_unfold")
+    kernels.LAUNCHES["fused_unfold"] += 1
     return out

@@ -16,7 +16,8 @@ backward (both in ``csrc/incidence.cu``); on a CPU tensor each runs its
 plain PyTorch version (``_incidence_select_plain``,
 ``_incidence_scatter_plain``).  ``incidence_gather`` is the differentiable
 pair: a ``torch.autograd.Function`` whose forward is the select and whose
-backward is the scatter.  The select is an exact copy, bit for bit; the
+backward is the scatter.  The select is also the custom operator
+``gnnkeras_tpu_torch::incidence_select``, which an exported program calls.  The select is an exact copy, bit for bit; the
 scatter sums each node's incident-arc cotangents in f32, in a fixed order.
 """
 
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from gnnkeras_tpu_torch import native
+from gnnkeras_tpu_torch.utils.pytree import register_tensor_dataclass
 
 TILE = 128
 
@@ -51,7 +53,9 @@ class IncidencePairs:
     (also for rows past the arc count); ``cols_dst`` likewise for the
     destination.  ``b_*`` are sorted by node tile, ``f_*`` by arc tile; both
     hold the same pairs.  Pairs from ``n_live`` on are inert padding (all
-    cols -1) at the tail of both orders."""
+    cols -1) at the tail of both orders.  The live count is a one-element
+    tensor (``live``), which the kernels read on the device: a program
+    saved by ``torch.export`` takes it from each batch as an input."""
 
     b_arc_tile: torch.Tensor  # (B,) i32
     b_node_tile: torch.Tensor  # (B,) i32
@@ -63,13 +67,17 @@ class IncidencePairs:
     f_cols_src: torch.Tensor  # (B, 128) i32
     f_cols_dst: torch.Tensor  # (B, 128) i32
     f_start: torch.Tensor  # (n_arc_tiles + 1,) i32 run offsets per arc tile
+    live: torch.Tensor  # (1,) i32 count of live pairs
     n_arc_tiles: int
     n_node_tiles: int
-    n_live: int
 
     @property
     def n_pairs(self) -> int:
         return int(self.b_arc_tile.shape[0])
+
+    @property
+    def n_live(self) -> int:
+        return int(self.live[0])
 
     @property
     def device(self) -> torch.device:
@@ -80,6 +88,9 @@ class IncidencePairs:
             self, **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
                      if isinstance(getattr(self, f.name), torch.Tensor)}
         )
+
+
+register_tensor_dataclass(IncidencePairs, static=("n_arc_tiles", "n_node_tiles"))
 
 
 def build_incidence_pairs(arc_src: np.ndarray, arc_dst: np.ndarray, n_nodes_padded: int) -> Optional[IncidencePairs]:
@@ -139,9 +150,9 @@ def build_incidence_pairs(arc_src: np.ndarray, arc_dst: np.ndarray, n_nodes_padd
         f_cols_src=T(_pad(f_cols_src, -1)),
         f_cols_dst=T(_pad(f_cols_dst, -1)),
         f_start=T(np.searchsorted(f_arc_padded, np.arange(n_arc_tiles + 1))),
+        live=T([B]),
         n_arc_tiles=n_arc_tiles,
         n_node_tiles=n_node_tiles,
-        n_live=B,
     )
 
 
@@ -187,13 +198,17 @@ def pad_incidence_pairs(inc: Optional[IncidencePairs], n_pairs: int) -> Optional
 def _incidence_select_plain(state: torch.Tensor, inc: IncidencePairs) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per pair, each arc row with a column ≥ 0 takes a copy of that node
     row; rows no pair touches stay zero.  (A_pad, d) each, exact."""
+    return _select_plain(state, inc.f_arc_tile, inc.f_node_tile, inc.f_cols_src, inc.f_cols_dst, inc.n_arc_tiles)
+
+
+def _select_plain(state, f_arc_tile, f_node_tile, f_cols_src, f_cols_dst, n_arc_tiles: int):
     d = state.shape[1]
     dev = state.device
-    a_pad = inc.n_arc_tiles * TILE
-    arc_rows = (inc.f_arc_tile.long()[:, None] * TILE + torch.arange(TILE, device=dev)).reshape(-1)
-    node0 = inc.f_node_tile.long()[:, None] * TILE
+    a_pad = n_arc_tiles * TILE
+    arc_rows = (f_arc_tile.long()[:, None] * TILE + torch.arange(TILE, device=dev)).reshape(-1)
+    node0 = f_node_tile.long()[:, None] * TILE
     out = []
-    for cols in (inc.f_cols_src, inc.f_cols_dst):
+    for cols in (f_cols_src, f_cols_dst):
         cols = cols.long()
         # entries with col -1 write a spare row past the end, dropped after:
         # no data-dependent shapes, so the copy also runs inside a CUDA graph
@@ -241,7 +256,7 @@ def _check_pairs(name: str, x: torch.Tensor, inc: IncidencePairs) -> None:
         raise ValueError(f"{name}: incidence pairs on {inc.device}, operand on {x.device}")
 
 
-def _cuda_operands(name: str, tensors, inc: IncidencePairs) -> None:
+def _cuda_operands(name: str, tensors, ints) -> None:
     """Raise on what the kernel does not take."""
     if tensors[0].device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {tensors[0].device}")
@@ -249,8 +264,6 @@ def _cuda_operands(name: str, tensors, inc: IncidencePairs) -> None:
         raise ValueError(f"{name}: operands must be float32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: operands must be contiguous")
-    ints = (inc.f_start, inc.f_node_tile, inc.f_cols_src, inc.f_cols_dst,
-            inc.b_start, inc.b_arc_tile, inc.b_cols_src, inc.b_cols_dst)
     if any(t.dtype != torch.int32 or not t.is_contiguous() or t.device != tensors[0].device for t in ints):
         raise ValueError(f"{name}: incidence pairs must be contiguous int32 on the operand's device")
 
@@ -270,26 +283,42 @@ def incidence_select(state: torch.Tensor, inc: IncidencePairs) -> Tuple[torch.Te
     zero.  A CPU tensor takes the plain version; a CUDA tensor launches
     ``gnn_incidence_select``, counted in ``kernels.LAUNCHES``."""
     _check_pairs("incidence_select", state, inc)
+    if state.device.type != "cpu" and state.shape[0] != inc.n_node_tiles * TILE:
+        raise ValueError(f"incidence_select: state has {state.shape[0]} rows, pairs cover {inc.n_node_tiles * TILE}")
+    return _incidence_select_op(state, inc.f_arc_tile, inc.f_node_tile, inc.f_cols_src, inc.f_cols_dst,
+                                inc.f_start, inc.live, inc.n_arc_tiles)
+
+
+@torch.library.custom_op("gnnkeras_tpu_torch::incidence_select", mutates_args=())
+def _incidence_select_op(state: torch.Tensor, f_arc_tile: torch.Tensor, f_node_tile: torch.Tensor,
+                         f_cols_src: torch.Tensor, f_cols_dst: torch.Tensor, f_start: torch.Tensor,
+                         live: torch.Tensor, n_arc_tiles: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The select as one operator of ``torch.library`` over the pairs'
+    select-order arrays, so that ``torch.export`` records it as one node:
+    the kernel on the card, the plain version on the CPU."""
     if state.device.type == "cpu":
-        return _incidence_select_plain(state, inc)
+        return _select_plain(state, f_arc_tile, f_node_tile, f_cols_src, f_cols_dst, n_arc_tiles)
     from gnnkeras_tpu_torch import kernels
 
-    _cuda_operands("incidence_select", (state,), inc)
-    if state.shape[0] != inc.n_node_tiles * TILE:
-        raise ValueError(f"incidence_select: state has {state.shape[0]} rows, pairs cover {inc.n_node_tiles * TILE}")
+    _cuda_operands("incidence_select", (state,), (f_start, f_node_tile, f_cols_src, f_cols_dst, live))
     d = state.shape[1]
-    a_pad = inc.n_arc_tiles * TILE
+    a_pad = n_arc_tiles * TILE
     y_src = torch.empty((a_pad, d), dtype=state.dtype, device=state.device)
     y_dst = torch.empty_like(y_src)
     fn = kernels.load("incidence").gnn_incidence_select
     with torch.cuda.device(state.device):
-        err = fn(state.data_ptr(), inc.f_start.data_ptr(), inc.f_node_tile.data_ptr(),
-                 inc.f_cols_src.data_ptr(), inc.f_cols_dst.data_ptr(), y_src.data_ptr(), y_dst.data_ptr(),
-                 d, inc.n_arc_tiles, inc.n_live, _vector_width(d, (state, y_src, y_dst)),
-                 kernels.stream_of(state))
+        err = fn(state.data_ptr(), f_start.data_ptr(), f_node_tile.data_ptr(), f_cols_src.data_ptr(),
+                 f_cols_dst.data_ptr(), y_src.data_ptr(), y_dst.data_ptr(), d, n_arc_tiles, live.data_ptr(),
+                 _vector_width(d, (state, y_src, y_dst)), kernels.stream_of(state))
     kernels.check(err, "incidence_select")
     kernels.LAUNCHES["incidence_select"] += 1
     return y_src, y_dst
+
+
+@_incidence_select_op.register_fake
+def _(state, f_arc_tile, f_node_tile, f_cols_src, f_cols_dst, f_start, live, n_arc_tiles):
+    rows = (n_arc_tiles * TILE, state.shape[1])
+    return state.new_empty(rows), state.new_empty(rows)
 
 
 def incidence_scatter(ct_src: torch.Tensor, ct_dst: torch.Tensor, inc: IncidencePairs) -> torch.Tensor:
@@ -306,14 +335,15 @@ def incidence_scatter(ct_src: torch.Tensor, ct_dst: torch.Tensor, inc: Incidence
         return _incidence_scatter_plain(ct_src, ct_dst, inc)
     from gnnkeras_tpu_torch import kernels
 
-    _cuda_operands("incidence_scatter", (ct_src, ct_dst), inc)
+    _cuda_operands("incidence_scatter", (ct_src, ct_dst),
+                   (inc.b_start, inc.b_arc_tile, inc.b_cols_src, inc.b_cols_dst, inc.live))
     a, d = ct_src.shape
     out = torch.empty((inc.n_node_tiles * TILE, d), dtype=ct_src.dtype, device=ct_src.device)
     fn = kernels.load("incidence").gnn_incidence_scatter
     with torch.cuda.device(ct_src.device):
         err = fn(ct_src.data_ptr(), ct_dst.data_ptr(), a, inc.b_start.data_ptr(), inc.b_arc_tile.data_ptr(),
                  inc.b_cols_src.data_ptr(), inc.b_cols_dst.data_ptr(), out.data_ptr(), d, inc.n_node_tiles,
-                 inc.n_live, kernels.stream_of(ct_src))
+                 inc.live.data_ptr(), kernels.stream_of(ct_src))
     kernels.check(err, "incidence_scatter")
     kernels.LAUNCHES["incidence_scatter"] += 1
     return out

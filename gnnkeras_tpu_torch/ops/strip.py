@@ -15,8 +15,10 @@ bf16 with no scale.
 PyTorch version (``_strip_matmul_plain``, ``_strip_matmul_t_plain``).  The
 backward reads the forward blocks transposed on chip, so no transposed
 operator is stored.  ``strip_matmul`` is differentiable through a
-``torch.autograd.Function`` whose backward is ``strip_matmul_t``; the BCSR
-residual stays plain torch ops, so autograd takes its transpose.  The compact
+``torch.autograd.Function`` whose backward is ``strip_matmul_t``; its
+forward is the custom operator ``gnnkeras_tpu_torch::strip_matmul``, which
+an exported program calls.  The BCSR residual stays plain torch ops, so
+autograd takes its transpose.  The compact
 slot 32/64 strips (mixed format) come with a later slice.
 """
 
@@ -31,6 +33,7 @@ import torch
 
 from gnnkeras_tpu_torch import native
 from gnnkeras_tpu_torch.ops.bcsr import BcsrMatrix, bcsr_aggregate_t, build_bcsr
+from gnnkeras_tpu_torch.utils.pytree import register_tensor_dataclass
 
 TILE = 128
 D_SUB = 8  # feature-row granularity of the feature-major state
@@ -56,6 +59,9 @@ class StripOperator:
     def to(self, device) -> "StripOperator":
         mv = lambda x: None if x is None else x.to(device)
         return dataclasses.replace(self, strip=mv(self.strip), residual=mv(self.residual), scale=mv(self.scale))
+
+
+register_tensor_dataclass(StripOperator, static=("slot",))
 
 
 def storage_name(dtype) -> str:
@@ -173,6 +179,19 @@ def _check_operands(name: str, x: torch.Tensor, strip: torch.Tensor, scale: Opti
         raise ValueError(f"{name}: scale {tuple(scale.shape)} must be {(t, TILE)}")
 
 
+@torch.library.custom_op("gnnkeras_tpu_torch::strip_matmul", mutates_args=())
+def _strip_matmul_op(state_t: torch.Tensor, strip: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """The forward as one operator of ``torch.library``, so that
+    ``torch.export`` records it as one node: the kernel on the card, the
+    plain version on the CPU."""
+    return _launch_or_plain("strip_matmul", state_t, strip, scale)
+
+
+@_strip_matmul_op.register_fake
+def _(state_t, strip, scale):
+    return torch.empty_like(state_t)
+
+
 class _StripMatmul(torch.autograd.Function):
     """The diagonal-block product with the backward kernel as its gradient
     (the operator is data: it gets no gradient)."""
@@ -180,7 +199,7 @@ class _StripMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, state_t, strip, scale):
         ctx.save_for_backward(strip, scale)
-        return _launch_or_plain("strip_matmul", state_t, strip, scale)
+        return _strip_matmul_op(state_t, strip, scale)
 
     @staticmethod
     def backward(ctx, ct_t):

@@ -3,7 +3,9 @@
     python -m gnnkeras_tpu_torch.tools.profile_forward
 
 For the bench-scale flagship forward (``GNNgraphBased.forward`` on the
-slot-packed synthetic bench batch), the bench-scale train step
+slot-packed synthetic bench batch), the same forward fused into one launch
+(``forward_fused``, bf16 blocks) and exported (``export_forward``, the
+loaded program's ``call``), the bench-scale train step
 (``training.trainer.train_step``, Adam, on the same batch), the arc-focused
 forward and train step (``GNNarcBased`` on ``bench_arc_graph``, the same
 graphs in arc focus) and for ``Predictor`` requests of 1, 16 and 64
@@ -93,6 +95,25 @@ def main() -> int:
     wall, busy, top = _profile(fwd)
     emit({"path": "flagship_forward", "host_ms": host, "profiled_wall_ms": wall, "device_busy_ms": busy,
           "device_idle_share": 1.0 - busy / wall, "device_ms_by_kernel": top})
+
+    import tempfile
+
+    from gnnkeras_tpu_torch import export_forward, load_exported
+    from gnnkeras_tpu_torch.ops.fused import build_fused_diag
+
+    a = batch.num_arcs
+    cpu = batch.to("cpu")
+    op = build_fused_diag(cpu.arc_src.numpy()[:a], cpu.arc_dst.numpy()[:a], cpu.arcnode_weight.numpy()[:a],
+                          batch.num_nodes, device="cuda")
+    fused = lambda: model.forward_fused(batch, op)
+    with tempfile.TemporaryDirectory() as path:
+        export_forward(model, batch, path)
+        exported = load_exported(path)
+    for name, fn in (("flagship_forward_fused", fused), ("flagship_exported_call", lambda: exported.call(batch))):
+        host = _host_ms(fn)
+        wall, busy, top = _profile(fn)
+        emit({"path": name, "host_ms": host, "profiled_wall_ms": wall, "device_busy_ms": busy,
+              "device_idle_share": 1.0 - busy / wall, "device_ms_by_kernel": top})
 
     from gnnkeras_tpu_torch.training.trainer import train_step
 

@@ -68,3 +68,23 @@ def test_default_device_raises_without_card(no_card):
     with pytest.raises(RuntimeError, match="cuda"):
         batch.to("cuda")
     assert batch.nodes.device.type == "cpu" and np.isfinite(model.forward(batch)[2].numpy()).all()
+
+
+def test_serving_entry_points_raise_without_card(no_card, tmp_path):
+    from gnnkeras_tpu_torch import MicroBatcher, Predictor, export_forward, from_graph_object, load_exported
+    from gnnkeras_tpu_torch.data.synthetic import flagship_gnn, random_molecules
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        flagship_gnn()
+    model = flagship_gnn("cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        MicroBatcher(Predictor(model, 128, 64, 2))
+    batch = from_graph_object(random_molecules(n_graphs=1)[0], device="cpu")
+    export_forward(model, batch, str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_exported(str(tmp_path))
+    loaded = load_exported(str(tmp_path), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        loaded._module("cuda")
+    out, _ = loaded.call(batch)
+    assert np.isfinite(out.numpy()).all()

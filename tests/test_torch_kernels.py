@@ -80,6 +80,28 @@ def test_fused_cpu_wrapper_takes_plain_version():
     assert kernels.LAUNCHES == before
 
 
+def _fused_rm_inputs(t=4, d=14, storage=torch.bfloat16, seed=0):
+    """Row-major whole-unfold inputs: state (N, d), constant (N, d), two
+    (d, d) weights scaled as in ``_fused_inputs``, blocks dst rows × src
+    cols in ``storage``."""
+    g = torch.Generator().manual_seed(seed)
+    s0 = torch.randn(t * 128, d, generator=g)
+    c = 0.3 * torch.randn(t * 128, d, generator=g)
+    w = lambda: 0.25 * (14 / d) ** 0.5 * torch.randn(d, d, generator=g)
+    blocks = 0.3 * (torch.rand(t, 128, 128, generator=g) < 0.05) * torch.rand(t, 128, 128, generator=g)
+    return s0, c, w(), w(), fused.FusedDiagOperator(blocks=blocks.to(storage), tile=128)
+
+
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.float32])
+def test_fused_rowmajor_cpu_wrapper_takes_plain_version(storage):
+    s0, c, ws, wa, op = _fused_rm_inputs(storage=storage)
+    before = dict(kernels.LAUNCHES)
+    got = fused.fused_unfold(s0, c, ws, wa, op, 5, "selu")
+    want = fused._fused_unfold_plain(s0, c, ws, wa, op.blocks, 5, "selu")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert kernels.LAUNCHES == before
+
+
 def _incidence_inputs(n_arcs=1000, n_node_tiles=12, spread=(3, 3), pad_to=None, seed=0):
     """Incidence pairs of ``n_arcs`` arcs whose source lies in one of
     ``spread[0]`` node tiles after its arc tile's own and whose destination in
@@ -112,8 +134,8 @@ def test_sources_and_build_paths():
     for name in kernels.SOURCES:
         path = kernels.library_path(name)
         assert path.startswith(kernels.BUILD_DIR) and path.endswith(".so")
-    assert set(kernels.LAUNCHES) == {"strip_matmul", "strip_matmul_t", "fused_unfold_t", "incidence_select",
-                                     "incidence_scatter"}
+    assert set(kernels.LAUNCHES) == {"strip_matmul", "strip_matmul_t", "fused_unfold_t", "fused_unfold",
+                                     "incidence_select", "incidence_scatter"}
 
 
 # Every width each kernel is built for: the strip kernels' 8-row and 16-row
@@ -152,6 +174,64 @@ def test_fused_kernel_matches_plain_on_card(cuda, d_pad, activation):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert kernels.LAUNCHES["fused_unfold_t"] == before + 2
     assert np.isfinite(got.cpu().numpy()).all()
+
+
+# Every state width the row-major kernel takes (1 to 32, padded on chip to
+# 16 or 32; f32 blocks need more than 48 KiB of shared memory at both, bf16
+# blocks at 32), both block storages.  Against the plain
+# version on the card: with f32 blocks only the order of f32 sums differs,
+# over 5 chained iterations; with bf16 blocks a sum of another order can
+# round to the neighbouring bf16 value (one bf16 ulp), and the difference
+# spreads through the rest of the unfolding to the rows the block links it
+# to (these random blocks link each row to ~6 others anywhere in its tile).
+# So there every element stays within 2^-6 of the state's largest magnitude,
+# and a few rows leave the f32 tolerance: at most 70 of 2,560 (2.7%) at any
+# width on an H100 (NVIDIA H100 80GB HBM3, 700 W); the bound allows 5%.
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", list(range(1, 33)))
+def test_fused_rowmajor_kernel_matches_plain_on_card(cuda, d, storage):
+    dtype = getattr(torch, storage)
+    s0, c, ws, wa, op = (x.to(cuda) for x in _fused_rm_inputs(t=20, d=d, storage=dtype, seed=d))
+    want = fused._fused_unfold_plain(s0, c, ws, wa, op.blocks, 5, "selu")
+    before = kernels.LAUNCHES["fused_unfold"]
+    for _ in range(2):  # the second launch finds the shared-memory limit already raised
+        got = fused.fused_unfold(s0, c, ws, wa, op, 5, "selu")
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        beyond = (diff > 1e-5 + 1e-4 * want.abs()).any(dim=1)
+        if storage == "float32":
+            assert not beyond.any(), float(diff.max())
+        else:
+            stats = (float(diff.max()), int(beyond.sum()), len(beyond))
+            print("bf16 d", d, "max_abs_diff, rows beyond the f32 tolerance, rows:", *stats)
+            assert float(diff.max()) <= 2.0**-6 * float(want.abs().max()), stats
+            assert int(beyond.sum()) <= 0.05 * len(beyond), stats
+    assert kernels.LAUNCHES["fused_unfold"] == before + 2
+    assert np.isfinite(got.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ["relu", "tanh", "sigmoid", "linear"])
+def test_fused_rowmajor_kernel_activations_on_card(cuda, activation):
+    s0, c, ws, wa, op = (x.to(cuda) for x in _fused_rm_inputs(t=20, storage=torch.float32, seed=1))
+    want = fused._fused_unfold_plain(s0, c, ws, wa, op.blocks, 5, activation)
+    got = fused.fused_unfold(s0, c, ws, wa, op, 5, activation)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(fused.fused_unfold(s0, c, ws, wa, op, 0, activation), s0)
+
+
+@pytest.mark.cuda
+def test_fused_rowmajor_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    s0, c, ws, wa, op = (x.to(cuda) for x in _fused_rm_inputs(t=2, d=33, storage=torch.float32))
+    with pytest.raises(ValueError, match="1 to 32"):
+        fused.fused_unfold(s0, c, ws, wa, op, 5, "selu")
+    s0, c, ws, wa, op = (x.to(cuda) for x in _fused_rm_inputs(t=2))
+    with pytest.raises(ValueError, match="float32"):
+        fused.fused_unfold(s0.double(), c, ws, wa, op, 5, "selu")
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.fused_unfold(s0, c.T.contiguous().T, ws, wa, op, 5, "selu")
 
 
 # Widths 1 and 3 (one float per load), 14 (two), 24 and 32 (four, 16 bytes);
@@ -215,3 +295,66 @@ def test_incidence_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     ct = torch.zeros(len(src), 6, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         incidence.incidence_scatter(ct.half(), ct.half(), inc)
+
+
+@pytest.mark.cuda
+def test_exported_program_moves_to_the_card_and_calls_the_kernels(cuda, tmp_path):
+    """A program exported on the CPU, loaded onto the card: its strip
+    custom op launches the kernel there, and its outputs equal the CPU
+    forward's (f32 sums in another order: rtol 1e-5, atol 1e-6)."""
+    from gnnkeras_tpu_torch import export_forward, graphs_to_batch, load_exported
+    from gnnkeras_tpu_torch.data.synthetic import flagship_gnn, random_molecules
+
+    model = flagship_gnn("cpu", seed=0)
+    batch = graphs_to_batch(random_molecules(16, seed=1), "g", "average", slot_pack=128, strip_dtype="float32",
+                            device="cpu")
+    export_forward(model, batch, str(tmp_path))
+    loaded = load_exported(str(tmp_path), device=cuda)
+    before = kernels.LAUNCHES["strip_matmul"]
+    out, mask = loaded.call(batch.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["strip_matmul"] == before + 4
+    _, _, want, want_mask, _ = model.forward(batch)
+    assert torch.equal(mask.cpu(), want_mask)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_exported_arc_program_serves_a_batch_with_more_live_pairs(cuda, tmp_path):
+    """The live pair count is a tensor input of the exported program, read
+    by the select kernel on the card: the arc artifact traced on a batch of
+    2 molecules serves a batch of 32 padded to the same shapes in full, its
+    select walking every live pair of the 32.  Against the CPU forward of
+    that batch: f32 sums in another order, rtol 1e-5, atol 1e-6."""
+    from gnnkeras_tpu_torch import GraphObject, export_forward, graphs_to_batch, load_exported
+    from gnnkeras_tpu_torch.data.synthetic import arc_gnn, random_molecules
+    from gnnkeras_tpu_torch.graph.batch import pad_operators_to_cap
+
+    def arc_graphs(n_graphs, seed):
+        rng = np.random.default_rng(seed)
+        return [GraphObject(nodes=g.nodes, arcs=g.arcs, focus="a", aggregation_mode="average",
+                            targets=np.eye(2, dtype=np.float32)[rng.integers(0, 2, len(g.arcs))], arcs_canonical=True)
+                for g in random_molecules(n_graphs, seed=seed)]
+
+    small, big = arc_graphs(2, 1), arc_graphs(32, 2)
+    # arcs padded to the 32's own arc tiles, so every arc tile holds real arcs
+    pad_arcs = -(-sum(len(g.arcs) for g in big) // 128) * 128
+    template, batch = (pad_operators_to_cap(graphs_to_batch(g, "a", "average", pad_nodes=2048, pad_arcs=pad_arcs,
+                                                            pad_graphs=32, slot_pack=128, strip_dtype="float32",
+                                                            device="cpu")) for g in (small, big))
+    model = arc_gnn("cpu", seed=0)
+    inc, lo = batch.arc_inc, template.arc_inc.n_live
+    assert inc.n_live > lo and inc.n_pairs == template.arc_inc.n_pairs
+    # a select that stopped at the template's live count would leave the
+    # supervised arc rows that the later pairs feed at zero
+    past = (inc.f_arc_tile[lo:].long()[:, None] * 128 + torch.arange(128))[inc.f_cols_src[lo:] >= 0]
+    assert batch.output_row_mask[past].any()
+    export_forward(model, template, str(tmp_path))
+    loaded = load_exported(str(tmp_path), device=cuda)
+    before = kernels.LAUNCHES["incidence_select"]
+    out, mask = loaded.call(batch.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["incidence_select"] == before + 1
+    _, _, want, want_mask, _ = model.forward(batch)
+    assert torch.equal(mask.cpu(), want_mask)
+    torch.testing.assert_close(out.cpu()[want_mask], want[want_mask], rtol=1e-5, atol=1e-6)

@@ -14,7 +14,7 @@ import gnnkeras_tpu.serving as jserving
 import gnnkeras_tpu_torch.graph.graph as tgraph
 import gnnkeras_tpu_torch.serving as tserving
 import gnnkeras_tpu.graph.graph as jgraph
-from torch_port_common import flagship_pair, graphs, raw_molecules
+from torch_port_common import flagship_pair, graphs, node_targets, raw_molecules
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -73,3 +73,30 @@ def test_warmup_and_overflow():
     small = tserving.Predictor(tp.model, max_nodes=128, max_arcs=64, max_graphs=4, device="cpu")
     with pytest.raises(ValueError, match="overflows template"):
         small(_T[:4])
+
+
+def test_fused_node_focus_matches_jax():
+    """The counterpart of the JAX package's node-focused fused-route test:
+    the node focus served through the whole-unfold kernel in both packages,
+    and close to the eval route (bf16 blocks against f32 BCSR)."""
+    raw = node_targets(raw_molecules(n_graphs=10, seed=5), seed=5)
+    jg, tg = graphs(jgraph, raw, focus="n"), graphs(tgraph, raw, focus="n")
+    jmodel, tmodel = flagship_pair(seed=5, node_focus=True)
+    jp = jserving.Predictor.for_graphs(jmodel, jg, batch_size=len(jg), fused=True)
+    tp = tserving.Predictor.for_graphs(tmodel, tg, batch_size=len(tg), fused=True, device="cpu")
+    assert tp.focus == jp.focus == "n" and tp.fused and jp.fused
+    got = tp(tg)
+    assert got.shape == (sum(len(g.nodes) for g in tg), 2)
+    np.testing.assert_allclose(got, jp(jg), rtol=RTOL, atol=ATOL)
+    eval_route = tserving.Predictor.for_graphs(tmodel, tg, batch_size=len(tg), fused=False, device="cpu")
+    assert np.abs(got - eval_route(tg)).max() < 0.05
+
+
+def test_tiles_per_step_is_stored_as_in_jax():
+    jp, tp = _predictors("auto")
+    assert tp.tiles_per_step == jp.tiles_per_step == 8
+    jmodel, tmodel = flagship_pair(seed=3)
+    jp3 = jserving.Predictor(jmodel, 256, 512, 4, tiles_per_step=3)
+    tp3 = tserving.Predictor(tmodel, 256, 512, 4, tiles_per_step=3, device="cpu")
+    assert tp3.tiles_per_step == jp3.tiles_per_step == 3
+    np.testing.assert_allclose(tp3(_T[:4]), jp3(_J[:4]), rtol=RTOL, atol=ATOL)
