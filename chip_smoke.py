@@ -64,10 +64,31 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    request of its own, throughput against per-request dispatch;
 13. HTTP: ``GraphServer`` on an ephemeral port of 127.0.0.1, ``/healthz``,
    ``/metadata`` and 8 concurrent ``/predict`` clients against the
-   in-process ``Predictor``.
+   in-process ``Predictor``;
+14. the single large graph (``data/synthetic.large_banded_graph``: 500,000
+   nodes, 3,892,679 arcs within a band of 64, and its band-384 variant):
+   the host build; the strip kernel on a diagonal of the banded
+   decomposition and kernel row 8 (quantised block product, both
+   directions) on the quantised operators of both graphs, int8 and bf16
+   storage, against their plain versions, with ``torch.sparse.mm`` as the
+   library yardstick; then the node-focused model's eval forward through
+   ``agg_dtype='auto'`` (the banded int8 decomposition, 3 diagonals: 3
+   strip launches per aggregation) and ``agg_dtype='int8'`` on the band-384
+   graph (``QuantBcsr``: one row-8 launch per aggregation) and on the
+   band-384 graph with parallel arcs (where ``agg_dtype='int8'`` falls back
+   to bf16 blocks) against the plain f32 BCSR route of the same graph, and
+   one Adam step each on the card against the CPU, with ``fit``,
+   ``evaluate``, ``predict`` and timed steps;
+15. slot-32/64 mixed strips (kernel row 3): the strip kernel at slot 32 and
+   64 on a bench-scale batch of 4,337 ``random_molecules`` of 5-79 nodes
+   (compact strips and full blocks both present) in int8 and bf16, and on
+   the bench batch (every
+   tile slot-pure), both directions; the flagship's forward and one Adam
+   step on each of the mixed batches, and its forward on the bench batch at
+   slot 32, card against CPU, with launches.
 
-Then one JSON line listing the kernels, the card line again, and as the last
-line ``{"ok": true, "device": {...}}``.  The full log also goes to
+Then the phase times, one JSON line listing the kernels, the card line
+again, and as the last line ``{"ok": true, "device": {...}}``.  The full log also goes to
 ``chiprun_out/chip_smoke.jsonl``.  Exits non-zero without a card.
 """
 
@@ -180,47 +201,142 @@ def fused_inputs(model, batch):
     return state0, const.contiguous(), w_state.detach(), w_agg.detach(), op.to(dev), act
 
 
-def check_strip(batch, label, timed, name="strip_matmul"):
-    """``name`` is the forward kernel ``strip_matmul`` or its backward
-    ``strip_matmul_t``; both move the same bytes."""
+def check_strip(op, label, timed, name="strip_matmul", d=16):
+    """The strip kernel on ``op`` (a ``StripOperator``: slot-128 strips,
+    compact slot-32/64 strips, or the mixed format) against its plain
+    version, at ``d`` feature rows.  ``name`` is the forward kernel
+    ``strip_matmul`` or its backward ``strip_matmul_t``; both move the same
+    bytes."""
     import torch
     from gnnkeras_tpu_torch.ops import strip as S
 
     kernel, plain = getattr(S, name), getattr(S, f"_{name}_plain")
-    op = batch.strip
-    dev = batch.device
+    operands = S.diag_operands(op)
+    tensors = [o for o in operands[:4] if o is not None]
+    dev = op.strip.device
+    n = (op.strip.shape[0] + (0 if op.blocks is None else op.blocks.shape[0])) * 128
     gen = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((16, batch.num_nodes), generator=gen, device=dev)
+    x = torch.randn((d, n), generator=gen, device=dev)
     with torch.no_grad():
-        got = kernel(x, op.strip, op.scale)
-        want = plain(x, op.strip, op.scale)
+        got = kernel(x, *operands)
+        want = plain(x, *operands)
     torch.cuda.synchronize()
     # f32 sums of the same few terms in another order
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     res = {"phase": "kernel_check", "kernel": name, "batch": label,
-           "storage": str(op.strip.dtype).replace("torch.", ""), "tiles": int(op.strip.shape[0]),
+           "storage": str(op.strip.dtype).replace("torch.", ""), "slot": op.slot,
+           "tiles": n // 128, "strip_tiles": int(op.strip.shape[0]),
+           "block_tiles": 0 if op.blocks is None else int(op.blocks.shape[0]), "d": d,
            "max_abs_diff": float((got - want).abs().max())}
     if timed:
-        nnz = int(torch.count_nonzero(op.strip))
-        n_bytes = op.strip.numel() * op.strip.element_size() + 2 * x.numel() * 4
-        if op.scale is not None:
-            n_bytes += op.scale.numel() * 4
+        mats = [t for t in (operands[0], operands[2]) if t is not None]
+        nnz = sum(int(torch.count_nonzero(t)) for t in mats)
+        n_bytes = sum(t.numel() * t.element_size() for t in tensors) + 2 * x.numel() * 4
         with torch.no_grad():
-            res["kernel_ms"] = graph_ms([lambda: kernel(x, op.strip, op.scale)])
-            copies = [(x.clone(), op.strip.clone(), None if op.scale is None else op.scale.clone())
-                      for _ in range(cold_copies(n_bytes))]
+            res["kernel_ms"] = graph_ms([lambda: kernel(x, *operands)])
+            clone = lambda o: o.clone() if isinstance(o, torch.Tensor) else o
+            copies = [(x.clone(), *[clone(o) for o in operands]) for _ in range(cold_copies(n_bytes))]
             res["kernel_cold_ms"] = graph_ms([lambda o=o: kernel(*o) for o in copies])
             res["cold_copies"] = len(copies)
             del copies
-            res["plain_ms"] = graph_ms([lambda: plain(x, op.strip, op.scale)])
-            # the dense f32 operator (transposed for the backward), a yardstick only
-            dense = op.strip.float() if op.scale is None else op.strip.float() * op.scale[:, None, :]
+            res["plain_ms"] = graph_ms([lambda: plain(x, *operands)])
+            # the expanded dense f32 operator (transposed for the backward), a yardstick only
+            full, scale = S._full_operator(*operands[:4], operands[4])
+            dense = full.float() if scale is None else full.float() * scale[:, None, :]
             if name == "strip_matmul_t":
                 dense = dense.transpose(1, 2).contiguous()
-            tiles = x.reshape(16, -1, 128).permute(1, 0, 2).contiguous()
+            tiles = x.reshape(d, -1, 128).permute(1, 0, 2).contiguous()
             res["library_ms"] = graph_ms([lambda: torch.bmm(tiles, dense)])
-            del dense
-        res["bound_ms"], res["bound_by"] = bound(n_bytes, 2 * 16 * nnz)
+            del dense, full
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, 2 * d * nnz)
+        res["bytes"], res["nnz"] = n_bytes, nnz
+    emit(res)
+    return res
+
+
+def event_ms(fn, calls=5, reps=5):
+    """Device time of one call of ``fn`` without a CUDA graph (for library
+    calls that capture may refuse): ``calls`` calls between CUDA events,
+    median over ``reps``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
+def check_qbcsr(qm, label, timed, name="qbcsr_matmul", d=8):
+    """Kernel row 8 (``qbcsr_matmul`` or its backward ``qbcsr_matmul_t``) on
+    the quantised operator ``qm`` against its plain version, at ``d``
+    feature rows.  Bound: every block, scale and tile index read once, the
+    input state read and the output written once, against 2·d·nnz f32
+    FLOP.  Library yardstick: one ``torch.sparse.mm`` with the operator
+    (transposed for the forward) as a sparse f32 CSR tensor."""
+    import dataclasses
+
+    import torch
+    from gnnkeras_tpu_torch.ops import bcsr as B
+
+    forward = name == "qbcsr_matmul"
+    kernel = B.qbcsr_matmul if forward else B.qbcsr_matmul_t
+    n_in, n_out = (qm.n_src_tiles, qm.n_dst_tiles) if forward else (qm.n_dst_tiles, qm.n_src_tiles)
+    dev = qm.mask.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((d, n_in * 128), generator=gen, device=dev)
+
+    def plain(x_, q):
+        if forward:
+            return B._qbcsr_matmul_plain(x_, q.mask, q.scale, q.src_tile, q.dst_tile, q.n_dst_tiles)
+        return B._qbcsr_matmul_t_plain(x_, q.mask, q.scale, q.src_tile, q.dst_tile, q.n_src_tiles)
+
+    with torch.no_grad():
+        got, want = kernel(x, qm), plain(x, qm)
+    torch.cuda.synchronize()
+    # f32 sums of a tile's block products in another order
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    res = {"phase": "kernel_check", "kernel": name, "batch": label,
+           "storage": str(qm.mask.dtype).replace("torch.", ""), "blocks": int(qm.mask.shape[0]),
+           "src_tiles": qm.n_src_tiles, "dst_tiles": qm.n_dst_tiles, "d": d,
+           "max_abs_diff": float((got - want).abs().max())}
+    if timed:
+        nnz = int(torch.count_nonzero(qm.mask))
+        index = (qm.src_tile, qm.row_ptr) if forward else (qm.dst_tile, qm.src_order, qm.src_row_ptr)
+        n_bytes = (qm.mask.numel() * qm.mask.element_size() + (0 if qm.scale is None else qm.scale.numel() * 4)
+                   + sum(t.numel() * 4 for t in index) + x.numel() * 4 + d * n_out * 128 * 4)
+        with torch.no_grad():
+            res["kernel_ms"] = graph_ms([lambda: kernel(x, qm)])
+            copy = lambda: dataclasses.replace(qm, **{f.name: getattr(qm, f.name).clone()
+                                                      for f in dataclasses.fields(qm)
+                                                      if isinstance(getattr(qm, f.name), torch.Tensor)})
+            copies = [(x.clone(), copy()) for _ in range(cold_copies(n_bytes))]
+            res["kernel_cold_ms"] = graph_ms([lambda o=o: kernel(*o) for o in copies])
+            res["cold_copies"] = len(copies)
+            del copies
+            res["plain_ms"] = graph_ms([lambda: plain(x, qm)])
+            # the operator as one sparse f32 matrix, a yardstick only
+            b, r, c = torch.nonzero(qm.mask).unbind(1)
+            src = qm.src_tile[b].long() * 128 + r
+            dst = qm.dst_tile[b].long() * 128 + c
+            vals = qm.scale[b, c] if qm.scale is not None else qm.mask[b, r, c].float()
+            rows, cols, shape = (dst, src, (qm.n_dst_tiles * 128, qm.n_src_tiles * 128)) if forward else \
+                (src, dst, (qm.n_src_tiles * 128, qm.n_dst_tiles * 128))
+            mat = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape).coalesce().to_sparse_csr()
+            del b, r, c, src, dst, vals, rows, cols
+            xt = x.T.contiguous()
+            lib = torch.sparse.mm(mat, xt)
+            torch.testing.assert_close(lib.T, want, rtol=1e-4, atol=1e-4)
+            res["library_ms"] = event_ms(lambda: torch.sparse.mm(mat, xt))
+            del mat, lib
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, 2 * d * nnz)
         res["bytes"], res["nnz"] = n_bytes, nnz
     emit(res)
     return res
@@ -570,22 +686,30 @@ class _Repeat:
         pass
 
 
-def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, n_arcs=None):
-    """One Adam step of ``make_model(device)`` on the card against the same
-    step on the CPU: loss, k, gradients, moving statistics and updated
-    parameters, and the step's launches (``per_step``).  With ``out_rows``
-    (the rows ``predict`` returns), then 10 steps through ``fit``,
-    ``evaluate``, ``predict`` and 7 timed steps.  Returns the launches of
-    one step."""
+def storage_of(batch):
+    """The aggregation operator's storage: the strip's dtype, else the
+    block operator's kind."""
+    if batch.strip is not None:
+        return str(batch.strip.strip.dtype)
+    return type(batch.bcsr).__name__
+
+
+def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, n_arcs=None,
+                loss_fn="categorical_crossentropy", phase="training", grad_atol_rel=1e-6):
+    """One Adam step of ``make_model(device)`` (compiled with ``loss_fn``) on
+    the card against the same step on the CPU: loss, k, gradients (rtol 1e-4,
+    atol ``grad_atol_rel`` of each leaf's largest |g|), moving statistics and
+    updated parameters, and the step's launches (``per_step``).  With
+    ``out_rows`` (the rows ``predict`` returns), then 10 steps through
+    ``fit``, ``evaluate``, ``predict`` and 7 timed steps.  Returns the
+    launches of one step."""
     import torch
     from gnnkeras_tpu_torch import kernels
     from gnnkeras_tpu_torch.training.trainer import train_step
 
-    models = {}
-    for dev in ("cuda", "cpu"):
-        models[dev] = make_model(dev)
-        models[dev].compile(optimizer="adam:0.01", loss="categorical_crossentropy", metrics=["accuracy"])
-    model, model_cpu = models["cuda"], models["cpu"]
+    model, model_cpu = make_model("cuda"), make_model("cpu")
+    for m in (model, model_cpu):
+        m.compile(optimizer="adam:0.01", loss=loss_fn, metrics=["accuracy"])
     before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
 
     kernels.reset_launches()
@@ -596,7 +720,7 @@ def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, 
 
     # one step of f32 sums in other orders over ~139k nodes: the loss, the
     # statistics and the gradients agree to rtol 1e-4; entries of a gradient
-    # below 1e-6 of its largest are held to 1e-6 of that largest
+    # below ``grad_atol_rel`` of its largest are held to that share of it
     loss, loss_cpu = float(logs["loss_sum"] / logs["count"]), float(logs_cpu["loss_sum"] / logs_cpu["count"])
     k, k_cpu = float(aux["k"]), float(aux_cpu["k"])
     assert k == k_cpu == 5.0, (k, k_cpu)
@@ -606,11 +730,15 @@ def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, 
     for n, p in model.named_parameters():
         grad, grad_cpu = p.grad.cpu().numpy(), params_cpu[n].grad.numpy()
         gmax = float(np.abs(grad_cpu).max())
-        np.testing.assert_allclose(grad, grad_cpu, rtol=1e-4, atol=1e-6 * gmax, err_msg=n)
+        np.testing.assert_allclose(grad, grad_cpu, rtol=1e-4, atol=grad_atol_rel * gmax, err_msg=n)
         worst[n] = float(np.abs(grad - grad_cpu).max() / max(gmax, 1e-30))
-        # Adam's first step is about lr·sign(g): compare the updated
-        # parameters where |g| is not within reach of a sign flip
-        live = np.abs(grad_cpu) >= 1e-6 * gmax
+        # Adam's first step is lr·g/(|g| + eps) (lr 0.01, eps 1e-7), whose
+        # slope in g is lr·eps/(|g| + eps)²: compare the updated parameters
+        # where the gradient error the check above allows (a sign flip
+        # included) moves the step by less than the parameters' atol
+        g_abs = np.abs(grad_cpu)
+        g_err = 1e-4 * g_abs + grad_atol_rel * gmax
+        live = 0.01 * 1e-7 * g_err / (np.maximum(g_abs - g_err, 0.0) + 1e-7) ** 2 < 1e-6
         excluded += int((~live).sum())
         np.testing.assert_allclose(p.detach().cpu().numpy()[live], params_cpu[n].detach().numpy()[live],
                                    rtol=1e-5, atol=1e-6, err_msg=n)
@@ -618,7 +746,7 @@ def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, 
     buffers_cpu = dict(model_cpu.named_buffers())
     for n, b in model.named_buffers():
         np.testing.assert_allclose(b.cpu().numpy(), buffers_cpu[n].numpy(), rtol=1e-5, atol=1e-6, err_msg=n)
-    res = {"phase": "training", "batch": label, "storage": str(b_gpu.strip.strip.dtype), "k": k,
+    res = {"phase": phase, "batch": label, "storage": storage_of(b_gpu), "k": k, "loss_fn": loss_fn,
            "first_step_loss": loss, "first_step_loss_cpu": loss_cpu, "launches_per_step": launches,
            "grad_max_rel_diff": worst, "adam_entries_excluded": excluded, "card": card}
 
@@ -802,10 +930,12 @@ def serve_phase(model, model_cpu, sample, big, route_kernel, card):
     return serve_launches
 
 
-def forward_phase(label, model, model_cpu, b_gpu, b_cpu, n_arcs, out_rows, card, per_forward):
+def forward_phase(label, model, model_cpu, b_gpu, b_cpu, n_arcs, out_rows, card, per_forward, phase="forward",
+                  state_atol=1e-6):
     """The eval forward on the card against the CPU, its launches
     (``per_forward``), its ``out_rows`` output rows (graphs or arcs) and its
-    host time (median of 7, synchronised)."""
+    host time (median of 7, synchronised); states held to rtol 1e-5 and
+    ``state_atol``."""
     import torch
     from gnnkeras_tpu_torch import kernels
 
@@ -821,7 +951,7 @@ def forward_phase(label, model, model_cpu, b_gpu, b_cpu, n_arcs, out_rows, card,
     assert np.isfinite(o).all() and o.shape == (out_rows, 2)
     # f32 throughout; only summation order differs from the CPU run
     np.testing.assert_allclose(o, out_cpu.numpy()[m], rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(state.cpu().numpy(), state_cpu.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(state.cpu().numpy(), state_cpu.numpy(), rtol=1e-5, atol=state_atol)
     ts = []
     for _ in range(7):
         torch.cuda.synchronize()
@@ -830,10 +960,230 @@ def forward_phase(label, model, model_cpu, b_gpu, b_cpu, n_arcs, out_rows, card,
         torch.cuda.synchronize()
         ts.append(time.perf_counter() - t)
     dt = float(np.median(ts))
-    emit({"phase": "forward", "model": model.name, "batch": label, "storage": str(b_gpu.strip.strip.dtype), "k": k,
+    emit({"phase": phase, "model": model.name, "batch": label, "storage": storage_of(b_gpu), "k": k,
           "launches": launches, "output_rows": int(m.sum()), "forward_ms": dt * 1e3,
           "transition_edges_per_s": 5 * n_arcs / dt, "arcs": n_arcs, "card": card})
     return launches
+
+
+def large_graph_route(label, g, batch, ref_bcsr, card, per_forward, per_step):
+    """The large graph through one operator route (``batch``, on the card):
+    the eval forward against the plain f32 BCSR route of the same graph on
+    the card (``ref_bcsr``, with the route's own weights): k equal, states
+    and outputs within f32 tolerance (int8 mask times f32 scale is the exact
+    weight; bf16 blocks hold the weights rounded to bf16), its launches
+    (``per_forward``) and host time (median of 7, synchronised); then one
+    Adam step against the same step on the CPU, ``fit``, ``evaluate``,
+    ``predict`` and timed steps (``train_phase``, mse on the graph's normal
+    targets).  Returns (forward launches, step launches)."""
+    import torch
+    from gnnkeras_tpu_torch import kernels
+    from gnnkeras_tpu_torch.data.synthetic import large_graph_gnn
+
+    model = large_graph_gnn("cuda", seed=0)
+    n_nodes, n_arcs = int(g.nodes.shape[0]), int(g.arcs.shape[0])
+    kernels.reset_launches()
+    k, state, out, mask, _ = model.forward(batch, training=False)
+    torch.cuda.synchronize()
+    assert k == 5, k
+    launches = expect_launches(**per_forward)
+    k_ref, state_ref, out_ref, mask_ref, _ = model.forward(batch.replace(bcsr=ref_bcsr), training=False)
+    assert k_ref == k and torch.equal(mask, mask_ref)
+    o, o_ref = out[mask], out_ref[mask]
+    assert torch.isfinite(o).all() and o.shape == (n_nodes, 2)
+    # the same f32 weights, sums of a node's ~8 neighbours in another order,
+    # over 5 iterations of states of magnitude ~1-4
+    torch.testing.assert_close(state, state_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(o, o_ref, rtol=1e-5, atol=1e-6)
+    ts = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.forward(batch, training=False)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t)
+    dt = float(np.median(ts))
+    emit({"phase": "large_graph", "route": label, "operator": type(batch.bcsr).__name__, "k": k,
+          "launches": launches, "nodes": n_nodes, "arcs": n_arcs, "forward_ms": dt * 1e3,
+          "forward_ms_all": [t * 1e3 for t in ts], "transition_edges_per_s": 5 * n_arcs / dt,
+          "state_max_abs_diff_vs_f32_bcsr": float((state - state_ref).abs().max()),
+          "out_max_abs_diff_vs_f32_bcsr": float((o - o_ref).abs().max()), "card": card})
+    del model, state, out, state_ref, out_ref
+    # a bias gradient here is a sum of 500,000 per-node terms of both signs:
+    # f32 sums of them in another order differ by up to 1.9e-5 of the leaf's
+    # largest |g| (NVIDIA H100 80GB HBM3, 700 W), so small entries are held
+    # to 1e-4 of it
+    step = train_phase(label, lambda dev: large_graph_gnn(dev, seed=0), batch, batch.to("cpu"), card, per_step,
+                       out_rows=n_nodes, n_arcs=n_arcs, loss_fn="mse", phase="large_graph_training",
+                       grad_atol_rel=1e-4)
+    return launches, step
+
+
+def with_parallel_arcs(g):
+    """``g`` with a second arc beside every 16th one, under a fresh label
+    draw: parallel arcs, whose summed weights do not factor into an int8
+    mask times a per-column scale."""
+    from gnnkeras_tpu_torch import GraphObject
+
+    extra = g.arcs[::16].copy()
+    extra[:, 2:] = np.random.default_rng(1).normal(size=(len(extra), g.arcs.shape[1] - 2))
+    arcs = np.concatenate([g.arcs, extra])
+    arcs = arcs[np.lexsort(arcs.T[::-1])]  # the canonical row order, as GraphObject sorts
+    return GraphObject(nodes=g.nodes, arcs=arcs, targets=g.targets, focus=g.focus,
+                       aggregation_mode=g.aggregation_mode, arcs_canonical=True)
+
+
+def large_graph_section(card):
+    """Phase 14: the single large graph (``large_banded_graph``, band 64 and
+    band 384, and the band-384 graph with parallel arcs) on the card: host
+    build, kernel checks of the banded diagonal and of row 8, and the three
+    operator routes (``large_graph_route``).  Returns what the kernels line
+    reads."""
+    import dataclasses
+
+    import torch
+    from gnnkeras_tpu_torch import from_graph_object
+    from gnnkeras_tpu_torch.data.synthetic import large_banded_graph
+    from gnnkeras_tpu_torch.ops.banded import BandedOperator
+    from gnnkeras_tpu_torch.ops.bcsr import QuantBcsr, build_bcsr, quantize_bcsr
+
+    t0 = time.perf_counter()
+    g64 = large_banded_graph()  # band 64: the banded decomposition
+    b64 = from_graph_object(g64, agg_dtype="auto", device="cuda")
+    torch.cuda.synchronize()
+    build64_s = time.perf_counter() - t0
+    assert isinstance(b64.bcsr, BandedOperator) and b64.bcsr.offsets == (-1, 0, 1), b64.bcsr.offsets
+    assert all(d.scale is not None for d in b64.bcsr.diags)
+    t0 = time.perf_counter()
+    g384 = large_banded_graph(band=384)  # 7 tile offsets: quantised BCSR
+    b384 = from_graph_object(g384, agg_dtype="int8", device="cuda")
+    torch.cuda.synchronize()
+    build384_s = time.perf_counter() - t0
+    assert isinstance(b384.bcsr, QuantBcsr) and b384.bcsr.scale is not None
+    # parallel arcs: int8 does not factor, so agg_dtype='int8' stores bf16 blocks
+    t0 = time.perf_counter()
+    g384p = with_parallel_arcs(g384)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        b384p = from_graph_object(g384p, agg_dtype="int8", device="cuda")
+    torch.cuda.synchronize()
+    build384p_s = time.perf_counter() - t0
+    assert isinstance(b384p.bcsr, QuantBcsr) and b384p.bcsr.scale is None
+    assert b384p.bcsr.mask.dtype == torch.bfloat16 and any("bfloat16" in str(w.message) for w in caught)
+    # the plain f32 BCSR operators of the graphs (the reference routes; for
+    # the bf16 blocks, their weights rounded to bf16) and the quantised
+    # operators of the kernel checks
+    refs, quants = {}, {}
+    for lbl, g, b in (("band64", g64, b64), ("band384", g384, b384), ("band384_parallel", g384p, b384p)):
+        arcs = g.arcs
+        m = build_bcsr(arcs[:, 0].astype(np.int64), arcs[:, 1].astype(np.int64), g.arcnode_weight, b.num_nodes)
+        if lbl == "band384_parallel":
+            m = dataclasses.replace(m, blocks=m.blocks.to(torch.bfloat16).float())
+        refs[lbl] = m.to("cuda")
+        if lbl == "band64":
+            quants[(lbl, "int8")] = quantize_bcsr(m, "int8", device="cuda")
+            quants[(lbl, "bfloat16")] = quantize_bcsr(m, "bfloat16", device="cuda")
+        else:
+            quants[("band384", str(b.bcsr.mask.dtype).replace("torch.", ""))] = b.bcsr
+        del m
+    bop = b64.bcsr
+    emit({"phase": "large_graph_build", "host_build_s": build64_s, "host_build_band384_s": build384_s,
+          "host_build_band384_parallel_s": build384p_s,
+          "nodes": int(g64.nodes.shape[0]), "arcs": int(g64.arcs.shape[0]), "arcs_band384": int(g384.arcs.shape[0]),
+          "arcs_band384_parallel": int(g384p.arcs.shape[0]),
+          "padded_nodes": b64.num_nodes, "tiles": b64.num_nodes // 128, "offsets": list(bop.offsets),
+          "residual_blocks": 0 if bop.residual is None else int(bop.residual.blocks.shape[0]),
+          "f32_bcsr_blocks": {k: int(v.blocks.shape[0]) for k, v in refs.items()},
+          "quantised_blocks": {f"{k[0]}_{k[1]}": int(v.mask.shape[0]) for k, v in quants.items()}})
+    out = {}
+    diag0 = bop.diags[bop.offsets.index(0)]
+    out["banded_strip"] = check_strip(diag0, "band64_diagonal_0", timed=True, d=8)
+    out["banded_strip_t"] = check_strip(diag0, "band64_diagonal_0", timed=True, name="strip_matmul_t", d=8)
+    out["qbcsr"] = {}
+    for (lbl, storage), qm in quants.items():
+        label = f"{lbl}_{storage}" if lbl == "band64" or storage == "int8" else "band384_parallel_arcs_bfloat16"
+        for name in ("qbcsr_matmul", "qbcsr_matmul_t"):
+            out["qbcsr"][(lbl, storage, name)] = check_qbcsr(qm, label, timed=True, name=name)
+    del quants
+    nd = len(bop.diags)
+    out["banded_fwd"], out["banded_step"] = large_graph_route(
+        "banded_auto", g64, b64, refs["band64"], card, dict(strip_matmul=4 * nd),
+        dict(strip_matmul=4 * nd, strip_matmul_t=4 * nd))
+    out["quant_fwd"], out["quant_step"] = large_graph_route(
+        "quantised_int8", g384, b384, refs["band384"], card, dict(qbcsr_matmul=4),
+        dict(qbcsr_matmul=4, qbcsr_matmul_t=4))
+    out["quant_bf16_fwd"], out["quant_bf16_step"] = large_graph_route(
+        "quantised_int8_fell_back_to_bf16", g384p, b384p, refs["band384_parallel"], card, dict(qbcsr_matmul=4),
+        dict(qbcsr_matmul=4, qbcsr_matmul_t=4))
+    return out
+
+
+def mixed_strip_section(card, model, model_cpu, bench, bench_u):
+    """Phase 15: slot-32/64 strips on the card: kernel checks on the
+    straddling batch (both regions) and on the bench batch (slot-pure), the
+    flagship's forward and one Adam step on each straddling batch, and its
+    forward on the bench batch at slot 32.  Returns what the kernels line
+    reads."""
+    from gnnkeras_tpu_torch import GraphObject, from_graph_object
+    from gnnkeras_tpu_torch.data.synthetic import BENCH_GRAPHS, flagship_gnn, random_molecules
+
+    t0 = time.perf_counter()
+    # as many molecules as the bench batch, of 5-79 nodes drawn uniformly:
+    # about 63% above slot 32 and 20% above slot 64, so both regions hold
+    # tiles at either slot; without parallel arcs, so int8 storage factors
+    straddle = without_parallel_arcs(GraphObject.merge(random_molecules(BENCH_GRAPHS, seed=8, min_nodes=5, max_nodes=80),
+                                                       "g", "average"))
+    mixed = {}
+    for slot in (32, 64):
+        for storage in ("int8", "bfloat16"):
+            cpu_b = from_graph_object(straddle, slot_pack=slot, strip_dtype=storage, device="cpu")
+            mixed[(slot, storage)] = (cpu_b, cpu_b.to("cuda"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # parallel arcs: bf16, as in JAX
+        pure_cpu = {slot: from_graph_object(bench, slot_pack=slot, strip_dtype="int8", device="cpu") for slot in (32, 64)}
+    pure = {slot: b.to("cuda") for slot, b in pure_cpu.items()}
+    pure_int8 = {slot: from_graph_object(bench_u, slot_pack=slot, strip_dtype="int8", device="cuda")
+                 for slot in (32, 64)}
+    emit({"phase": "mixed_strip_batches", "host_build_s": time.perf_counter() - t0,
+          "graphs": int(straddle.num_graphs), "nodes": int(straddle.nodes.shape[0]), "arcs": int(straddle.arcs.shape[0]),
+          "layouts": {f"slot{slot}": {"padded_nodes": b.num_nodes, "strip_tiles": int(b.strip.strip.shape[0]),
+                                      "block_tiles": int(b.strip.blocks.shape[0]),
+                                      "residual_blocks": 0 if b.strip.residual is None else
+                                      int(b.strip.residual.blocks.shape[0])}
+                      for (slot, storage), (_, b) in mixed.items() if storage == "int8"},
+          "bench_slot_pure": {f"slot{slot}": {"strip_tiles": int(b.strip.strip.shape[0]),
+                                              "block_tiles": int(b.strip.blocks.shape[0]),
+                                              "storage": str(b.strip.strip.dtype)} for slot, b in pure.items()}})
+    out = {"checks": {}, "fwd": {}, "step": {}}
+    for (slot, storage), (_, b) in mixed.items():
+        assert b.strip.strip.shape[0] > 0 and b.strip.blocks.shape[0] > 0
+        for name in ("strip_matmul", "strip_matmul_t"):
+            out["checks"][(slot, storage, name)] = check_strip(b.strip, f"straddling_slot{slot}", timed=True,
+                                                               name=name)
+    for slot in (32, 64):
+        for b, lbl in ((pure[slot], "bench"), (pure_int8[slot], "bench_without_parallel_arcs")):
+            assert b.strip.blocks.shape[0] == 0  # ~30-node molecules: every tile slot-pure
+            for name in ("strip_matmul", "strip_matmul_t"):
+                out["checks"][(slot, lbl, name)] = check_strip(b.strip, f"{lbl}_slot{slot}", timed=lbl == "bench",
+                                                               name=name)
+    n_arcs = int(straddle.arcs.shape[0])
+    # Molecules of up to 79 nodes: over 5 iterations the card's states have
+    # parted from the CPU's by up to 1.24e-6, and a BatchNorm gamma gradient
+    # by 1.5e-5 of its leaf's largest |g|, on such a batch (slot 64, bf16;
+    # NVIDIA H100 80GB HBM3, 700 W), so states are held to 5e-6 and gradient
+    # entries below 1e-4 of their leaf's largest |g| to 1e-4 of it.
+    for (slot, storage), (b_cpu, b_dev) in mixed.items():
+        lbl = f"straddling_slot{slot}_{storage}"
+        out["fwd"][(slot, storage)] = forward_phase(lbl, model, model_cpu, b_dev, b_cpu, n_arcs, straddle.num_graphs,
+                                                    card, dict(strip_matmul=4), phase="mixed_strip",
+                                                    state_atol=5e-6)["strip_matmul"]
+        out["step"][(slot, storage)] = train_phase(lbl, lambda dev: flagship_gnn(dev, seed=0), b_dev, b_cpu, card,
+                                                   dict(strip_matmul=4, strip_matmul_t=4), phase="mixed_strip",
+                                                   grad_atol_rel=1e-4)["strip_matmul_t"]
+    out["pure_fwd"] = forward_phase("bench_slot32", model, model_cpu, pure[32], pure_cpu[32],
+                                    int(bench.arcs.shape[0]), bench.num_graphs, card, dict(strip_matmul=4),
+                                    phase="mixed_strip")["strip_matmul"]
+    return out
 
 
 def main():
@@ -851,6 +1201,8 @@ def main():
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
+    times = {}
 
     # -- 1. device and build -------------------------------------------------
     t0 = time.perf_counter()
@@ -859,9 +1211,10 @@ def main():
              for n in kernels.SOURCES}
     emit({"phase": "build", "card": card, "kind": kind, "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0, "ptxas": ptxas})
+    times["build"] = time.perf_counter() - t0
 
     # -- 2. kernel checks ----------------------------------------------------
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     bench = bench_graph()  # the bench.py flagship batch (synthetic, seed 0)
     with warnings.catch_warnings():
         # its parallel arcs make int8 storage inapplicable: bf16, as in JAX
@@ -887,12 +1240,12 @@ def main():
     assert b_ragged.strip.residual is not None
     b_ragged_fused = from_graph_object(GraphObject.merge(ragged[:-1], "g", "average"), tile_pack=True, device="cuda")
 
-    strip_bf16 = check_strip(b_bench, "bench", timed=True)
-    strip_int8 = check_strip(b_int8, "bench_without_parallel_arcs", timed=True)
-    check_strip(b_ragged, "ragged_small", timed=False)
-    strip_t_bf16 = check_strip(b_bench, "bench", timed=True, name="strip_matmul_t")
-    strip_t_int8 = check_strip(b_int8, "bench_without_parallel_arcs", timed=True, name="strip_matmul_t")
-    check_strip(b_ragged, "ragged_small", timed=False, name="strip_matmul_t")
+    strip_bf16 = check_strip(b_bench.strip, "bench", timed=True)
+    strip_int8 = check_strip(b_int8.strip, "bench_without_parallel_arcs", timed=True)
+    check_strip(b_ragged.strip, "ragged_small", timed=False)
+    strip_t_bf16 = check_strip(b_bench.strip, "bench", timed=True, name="strip_matmul_t")
+    strip_t_int8 = check_strip(b_int8.strip, "bench_without_parallel_arcs", timed=True, name="strip_matmul_t")
+    check_strip(b_ragged.strip, "ragged_small", timed=False, name="strip_matmul_t")
     fused_res = check_fused(model, b_bench, "bench", timed=True)
     check_fused(model, b_ragged_fused, "ragged_small", timed=False)
     rm_res = {dtype: check_fused_rm(model, b_bench, "bench", dtype, timed=True)
@@ -925,7 +1278,10 @@ def main():
     check_incidence(b_ragged_arc.arc_inc.to("cuda"), b_ragged_arc.arc_src.numpy(), b_ragged_arc.arc_dst.numpy(),
                     "ragged_small", timed=False, d=3)
 
+    times["kernel_checks"] = time.perf_counter() - t_phase
+
     # -- 3. serving ----------------------------------------------------------
+    t_phase = time.perf_counter()
     sample = random_molecules(64, seed=1)
     big = random_molecules(1, seed=2, min_nodes=150, max_nodes=151)[0]
     serve_launches = serve_phase(model, model_cpu, sample, big, {}, card)
@@ -1025,6 +1381,18 @@ def main():
     mb_predictor = microbatch_phase(model, sample, card)
     http_phase(mb_predictor, sample, card)
 
+    times["serving_to_http"] = time.perf_counter() - t_phase
+
+    # -- 14. the single large graph, 15. slot-32/64 mixed strips ----------------
+    t_phase = time.perf_counter()
+    large = large_graph_section(card)
+    torch.cuda.empty_cache()
+    times["large_graph"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    mixed = mixed_strip_section(card, model, model_cpu, bench, bench_u)
+    times["mixed_strip"] = time.perf_counter() - t_phase
+    emit({"phase": "timing", "phase_s": times, "total_s": time.perf_counter() - t_start})
+
     # -- kernels, card, verdict ----------------------------------------------
     def entry(name, source, replaces, launches, res):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -1035,6 +1403,7 @@ def main():
     fused_src = "gnnkeras_tpu_torch/csrc/fused_unfold.cu"
     fused_rm_src = "gnnkeras_tpu_torch/csrc/fused_unfold_rm.cu"
     inc_src = "gnnkeras_tpu_torch/csrc/incidence.cu"
+    qbcsr_src = "gnnkeras_tpu_torch/csrc/qbcsr.cu"
     assert arc_serve_launches["incidence_select"] == 5 and arc_serve_launches["fused_unfold_t"] == 4
     assert export_launches["flagship"]["strip_matmul"] == forward_launches["bench"]
     emit({"kernels": [
@@ -1061,6 +1430,33 @@ def main():
               arc_forward["incidence_select"], sel_big),
         entry("incidence_scatter_above_10240_pairs", inc_src, "gnnkeras_tpu/ops/incidence.py:214",
               arc_train["incidence_scatter"], scatter_big),
+        # the banded decomposition's diagonal products: rows 1 and 1b at the
+        # 500k-node graph's shapes, once per diagonal and iteration
+        entry("strip_matmul_banded_diagonal", strip_src, "gnnkeras_tpu/ops/strip.py:278", large["banded_fwd"]["strip_matmul"],
+              large["banded_strip"]),
+        entry("strip_matmul_t_banded_diagonal", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+              large["banded_step"]["strip_matmul_t"], large["banded_strip_t"]),
+        # row 8 on the band-384 graph's operator (the agg_dtype='int8' route),
+        # and its bf16 blocks on the same graph with parallel arcs, where
+        # agg_dtype='int8' falls back to bf16 storage
+        entry("qbcsr_matmul", qbcsr_src, "gnnkeras_tpu/ops/bcsr.py:378", large["quant_fwd"]["qbcsr_matmul"],
+              large["qbcsr"][("band384", "int8", "qbcsr_matmul")]),
+        entry("qbcsr_matmul_t", qbcsr_src, "gnnkeras_tpu/ops/bcsr.py:378", large["quant_step"]["qbcsr_matmul_t"],
+              large["qbcsr"][("band384", "int8", "qbcsr_matmul_t")]),
+        entry("qbcsr_matmul_bf16", qbcsr_src, "gnnkeras_tpu/ops/bcsr.py:378", large["quant_bf16_fwd"]["qbcsr_matmul"],
+              large["qbcsr"][("band384", "bfloat16", "qbcsr_matmul")]),
+        entry("qbcsr_matmul_t_bf16", qbcsr_src, "gnnkeras_tpu/ops/bcsr.py:378",
+              large["quant_bf16_step"]["qbcsr_matmul_t"], large["qbcsr"][("band384", "bfloat16", "qbcsr_matmul_t")]),
+        # row 1 on slot-32 compact strips (every bench tile slot-pure)
+        entry("strip_matmul_slot32", strip_src, "gnnkeras_tpu/ops/strip.py:278", mixed["pure_fwd"],
+              mixed["checks"][(32, "bench", "strip_matmul")]),
+        # row 3: both regions in one launch, both directions, slot 32 and 64
+        *[entry(f"strip_matmul_mixed_slot{slot}_{st}", strip_src, "gnnkeras_tpu/ops/strip.py:379",
+                mixed["fwd"][(slot, st)], mixed["checks"][(slot, st, "strip_matmul")])
+          for slot in (32, 64) for st in ("int8", "bfloat16")],
+        *[entry(f"strip_matmul_t_mixed_slot{slot}_{st}", strip_src, "gnnkeras_tpu/ops/strip.py:379",
+                mixed["step"][(slot, st)], mixed["checks"][(slot, st, "strip_matmul_t")])
+          for slot in (32, 64) for st in ("int8", "bfloat16")],
     ]})
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl"), "w") as f:

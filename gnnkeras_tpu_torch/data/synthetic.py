@@ -14,6 +14,12 @@
   repository's ``scripts/bench_arc_step.py`` on the same synthetic graphs: a
   2-class target per arc, and the arc-focused model with the starter
   architecture.
+- ``large_banded_graph`` and ``large_graph_gnn``: the single-large-graph
+  workload of the repository's ``scripts/bench_large_graph.py``: one
+  node-focused banded graph (500,000 nodes, 8 arcs drawn per node within a
+  band of 64, deduplicated: 3,892,679 arcs), average aggregation, and the
+  node-focused model it runs; ``band=384`` gives a graph whose 7 tile
+  offsets are more than the banded decomposition takes.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 
 from gnnkeras_tpu_torch.graph.graph import GraphObject
-from gnnkeras_tpu_torch.models.gnn import GNNarcBased, GNNgraphBased
+from gnnkeras_tpu_torch.models.gnn import GNNarcBased, GNNgraphBased, GNNnodeBased
 from gnnkeras_tpu_torch.models.mlp import MLP, get_inout_dims
 
 
@@ -102,3 +108,40 @@ def random_molecules(n_graphs: int = 25, seed: int = 0, min_nodes: int = 5, max_
         targets = np.eye(2, dtype=np.float32)[rng.integers(0, 2, 1)]
         graphs.append(GraphObject(nodes=nodes, arcs=arcs, targets=targets, focus="g", aggregation_mode="average"))
     return graphs
+
+
+LARGE_NODES, LARGE_PER_NODE, LARGE_BAND = 500_000, 8, 64
+
+
+def large_banded_graph(n_nodes: int = LARGE_NODES, band: int = LARGE_BAND) -> GraphObject:
+    """8 arcs from every node to a node at most ``band`` away (wrapping
+    around), duplicates removed; 8 normal node-label features, 2 normal
+    arc-label features and 2 normal targets per node, node focus, average
+    aggregation.  The draws follow ``scripts/bench_large_graph.py`` in
+    order, from its seed 0, so the same sizes give the same graph."""
+    rng = np.random.default_rng(0)
+    src = np.repeat(np.arange(n_nodes), LARGE_PER_NODE)
+    dst = (src + rng.integers(-band, band + 1, len(src))) % n_nodes
+    # unique (src, dst) pairs, sorted: parallel arcs would defeat the int8 factorisation
+    key = np.unique(src.astype(np.int64) * n_nodes + dst.astype(np.int64))
+    src, dst = key // n_nodes, key % n_nodes
+    arcs = np.concatenate(
+        [np.stack([src, dst], 1).astype(np.float32), rng.normal(size=(len(src), 2)).astype(np.float32)], axis=1
+    )
+    nodes = rng.normal(size=(n_nodes, 8)).astype(np.float32)
+    targets = rng.normal(size=(n_nodes, 2)).astype(np.float32)
+    return GraphObject(nodes=nodes, arcs=arcs, targets=targets, focus="n", aggregation_mode="average",
+                       arcs_canonical=True)
+
+
+def large_graph_gnn(device="cuda", seed: int = 0) -> GNNnodeBased:
+    """Node-focused GNN of the large-graph workload: dim_state 0 (the state
+    is the 8-wide node label), BatchNorm → Dense(→8, selu) state net,
+    BatchNorm → Dense(8→2, softmax) output net, max_iteration 5,
+    threshold 0."""
+    ins, ls = get_inout_dims("state", 8, 2, 2, "n", 0)
+    ino, lo = get_inout_dims("output", 8, 2, 2, "n", 0)
+    net_state = MLP(ins[0], ls, "selu", kernel_initializer="lecun_normal", bias_initializer="lecun_normal")
+    net_output = MLP(ino[0], lo, "softmax", kernel_initializer="glorot_normal", bias_initializer="glorot_normal")
+    return GNNnodeBased(net_state, net_output, 0, 5, 0.0).build(seed=seed, device=device)
+

@@ -4,11 +4,12 @@ Counterpart of ``gnnkeras_tpu.graph.batch``.  Nodes, arcs and graphs are
 padded; padded arcs carry weight 0 and padded nodes are masked everywhere, so
 they are inert in aggregation, BatchNorm, convergence checks and readout.
 Operators travel as (src, dst, weight) arrays plus, for 128-aligned batches,
-dense-block BCSR, the slot-128 strip operator and the compact tile-wise
-readout, and for the arc focus the incidence pairs of the arc readout.
-Everything is built on the host in NumPy and moved to ``device`` once.  The
-quantised ``agg_dtype`` operators and composite batches come with later
-slices.
+the aggregation operator (dense-block BCSR, or with ``agg_dtype`` its
+banded int8 decomposition, its quantised form or a cast copy), the strip
+operator of slot-packed batches (slot 128, or the slot-32/64 mixed format)
+and the compact tile-wise readout, and for the arc focus the incidence pairs
+of the arc readout.  Everything is built on the host in NumPy and moved to
+``device`` once.  Composite batches are not ported yet.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ class GraphBatch:
     targets: torch.Tensor
     target_mask: torch.Tensor
     sample_weight: torch.Tensor
-    bcsr: Optional[object]  # BcsrMatrix
+    bcsr: Optional[object]  # BcsrMatrix, BandedOperator or QuantBcsr
     strip: Optional[object]  # StripOperator (slot-packed batches)
     nodegraph_bcsr: Optional[object]  # BcsrMatrix (N × G) graph readout
     compact_readout: Optional[CompactReadout]
@@ -158,11 +159,17 @@ class GraphBatch:
         return dataclasses.replace(self, **moved)
 
     def aggregate(self, state: torch.Tensor) -> torch.Tensor:
-        """``Adjacencyᵀ·state``: dense-block BCSR when present, else the
-        edge-list segment sum."""
+        """``Adjacencyᵀ·state``: the block operator when present (banded
+        decomposition, quantised BCSR or BCSR), else the edge-list segment
+        sum."""
         if self.bcsr is not None:
-            from gnnkeras_tpu_torch.ops.bcsr import bcsr_aggregate
+            from gnnkeras_tpu_torch.ops.banded import BandedOperator, banded_aggregate
+            from gnnkeras_tpu_torch.ops.bcsr import QuantBcsr, bcsr_aggregate, qbcsr_aggregate
 
+            if isinstance(self.bcsr, BandedOperator):
+                return banded_aggregate(state, self.bcsr)
+            if isinstance(self.bcsr, QuantBcsr):
+                return qbcsr_aggregate(state, self.bcsr)
             return bcsr_aggregate(state, self.bcsr)
         from gnnkeras_tpu_torch.ops.segment import aggregate_neighbors
 
@@ -221,6 +228,7 @@ def from_graph_object(
     pad_graphs: Optional[int] = None,
     set_mask_override: Optional[np.ndarray] = None,
     dense_blocks: bool = True,
+    agg_dtype: Optional[str] = None,
     tile_pack: bool = False,
     slot_pack: Optional[int] = None,
     strip_dtype: str = "float32",
@@ -231,24 +239,48 @@ def from_graph_object(
     """Convert a (possibly merged) host graph into a padded batch on
     ``device`` (default ``"cuda"``; raises when no card is present).
 
+    ``set_mask_override`` makes a view of one graph with its own set mask
+    (single-graph mini-batching, ``single_graph_batch``).
+
     ``tile_pack`` re-positions whole graphs into 128-node tiles (per-node
     output rows are then permuted with gaps; ``host_pred_rows`` restores the
-    caller's order).  ``slot_pack=128`` positions identically and also builds
-    the slot-128 strip operator in ``strip_dtype`` (int8 mask+scale, falling
-    back to bf16 with a warning when the weights do not factor; float32;
-    bfloat16), which selects the transposed unfold engine."""
+    caller's order).  ``slot_pack`` (32, 64 or 128) packs at slot
+    granularity and also builds the strip operator in ``strip_dtype`` (int8
+    mask+scale, falling back to bf16 with a warning when the weights do not
+    factor; float32; bfloat16), which selects the transposed unfold engine:
+    at 128 it positions as ``tile_pack`` does (dense diagonal blocks); at
+    32/64 slot-pure tiles come first as compact strips and tiles holding
+    larger graphs follow as full blocks (``order_tiles_by_format``).
+
+    ``agg_dtype`` picks the aggregation operator: ``'auto'`` the banded
+    int8 decomposition (``ops/banded.py``) when it is exact, else the plain
+    float BCSR; ``'int8'`` the banded decomposition (bf16 where int8 does
+    not factor), else quantised BCSR (``QuantBcsr``); a float name
+    (``'float32'``, ``'bfloat16'``) casts the aggregation and readout BCSR
+    operators; None keeps the f32 BCSR."""
     device = resolve_device(device)
-    if slot_pack is not None and slot_pack != 128:
-        raise NotImplementedError("slot_pack < 128 (the mixed strip format) is not ported yet")
+    if agg_dtype not in (None, "auto", "int8", "float32", "bfloat16"):
+        raise ValueError(f"unsupported agg_dtype {agg_dtype!r}")
+    if slot_pack is not None and slot_pack not in (32, 64, 128):
+        raise ValueError(f"slot_pack {slot_pack} must be 32, 64 or 128")
     n, a = g.nodes.shape[0], g.arcs.shape[0]
     n_graphs = max(g.num_graphs, 1)
 
     pack_width = slot_pack if slot_pack is not None else (128 if tile_pack else None)
+    n_strip_tiles = None
     if pack_width is not None and dense_blocks and n > 0:
-        from gnnkeras_tpu_torch.graph.packing import pack_slots, positions_from_starts
+        from gnnkeras_tpu_torch.graph.packing import order_tiles_by_format, pack_slots, positions_from_starts
 
         pack_sizes = np.bincount(g.graph_of_node.astype(np.int64), minlength=n_graphs)
         pack_starts, n_rows_needed = pack_slots(pack_sizes, slot=pack_width, tile=128)
+        if slot_pack is not None and slot_pack < 128:
+            # mixed format: slot-pure tiles first (compact strips), tiles
+            # holding larger graphs after (full diagonal blocks)
+            from gnnkeras_tpu_torch.ops.strip import K_TILES
+
+            pack_starts, n_strip_tiles, n_rows_needed = order_tiles_by_format(
+                pack_starts, pack_sizes, slot_pack, 128, align=K_TILES
+            )
         pos = positions_from_starts(g.graph_of_node, pack_starts)
     else:
         pack_width = None
@@ -337,11 +369,13 @@ def from_graph_object(
     if dense_blocks and N % 128 == 0:
         from gnnkeras_tpu_torch.ops.bcsr import build_bcsr
 
-        bcsr = build_bcsr(src[:a], dst[:a], w[:a], N, device=device)
+        # on the host first: a quantised form may replace it
+        bcsr = build_bcsr(src[:a], dst[:a], w[:a], N)
         if slot_pack is not None and pack_width is not None:
             from gnnkeras_tpu_torch.ops.strip import build_strip_or_bf16
 
-            strip_op = build_strip_or_bf16(src[:a], dst[:a], w[:a], N, strip_dtype, device)
+            strip_op = build_strip_or_bf16(src[:a], dst[:a], w[:a], N, strip_dtype, device, slot=slot_pack,
+                                           n_strip_tiles=n_strip_tiles)
         if compact_info is not None:
             tile0, rank, g_max, spanning, T_n, graph_rows_np = compact_info
             sel = np.zeros((T_n, g_max, 128), dtype=dtype)
@@ -368,6 +402,28 @@ def from_graph_object(
             )
         elif g.focus == "g" and n > 0:
             nodegraph_bcsr = build_bcsr(pos, g.graph_of_node, g.nodegraph_weight, N, G_blocks, device=device)
+        if agg_dtype in ("int8", "auto"):
+            # the banded int8 decomposition when the graph is banded; 'auto'
+            # takes it only when the mask+scale factorisation is exact and
+            # otherwise keeps the plain float operator (never the bf16
+            # degrade, never quantised BCSR); 'int8' falls back to QuantBcsr.
+            # The readout operator stays float (read once per forward).
+            from gnnkeras_tpu_torch.ops.banded import build_banded_operator
+            from gnnkeras_tpu_torch.ops.bcsr import quantize_bcsr
+
+            bop = build_banded_operator(src[:a], dst[:a], w[:a], N, dtype="int8", strict_int8=agg_dtype == "auto",
+                                        device=device)
+            if bop is not None:
+                bcsr = bop
+            elif agg_dtype == "int8":
+                bcsr = quantize_bcsr(bcsr, "int8", device=device)
+        elif agg_dtype is not None:
+            from gnnkeras_tpu_torch.ops.bcsr import cast_bcsr
+
+            bcsr = cast_bcsr(bcsr, agg_dtype)
+            nodegraph_bcsr = cast_bcsr(nodegraph_bcsr, agg_dtype)
+        if bcsr is not None:
+            bcsr = bcsr.to(device)
 
     agg_arc, agg_node = native.agg_label_sums(src[:a], dst[:a], w[:a], arc_label[:a], nodes, N)
 
@@ -414,14 +470,15 @@ def pad_operators_to_cap(batch: GraphBatch) -> GraphBatch:
     their caps (``_MAX_BAND_FACTOR × tiles``, ``_MAX_PAIRS_PER_ARC_TILE ×
     arc tiles``), so every batch of one padded shape has the same operator
     shapes whatever its topology."""
-    from gnnkeras_tpu_torch.ops.bcsr import _MAX_BAND_FACTOR, pad_bcsr
+    from gnnkeras_tpu_torch.ops.bcsr import _MAX_BAND_FACTOR, BcsrMatrix, QuantBcsr, pad_bcsr, pad_qbcsr
     from gnnkeras_tpu_torch.ops.incidence import _MAX_PAIRS_PER_ARC_TILE, pad_incidence_pairs
 
     kwargs = {}
     for name in ("bcsr", "nodegraph_bcsr"):
         m = getattr(batch, name)
-        if m is not None:
-            kwargs[name] = pad_bcsr(m, _MAX_BAND_FACTOR * max(m.n_src_tiles, m.n_dst_tiles))
+        pad = {BcsrMatrix: pad_bcsr, QuantBcsr: pad_qbcsr}.get(type(m))
+        if pad is not None:  # a banded decomposition has no data-dependent block count
+            kwargs[name] = pad(m, _MAX_BAND_FACTOR * max(m.n_src_tiles, m.n_dst_tiles))
     if batch.arc_inc is not None:
         kwargs["arc_inc"] = pad_incidence_pairs(batch.arc_inc, _MAX_PAIRS_PER_ARC_TILE * batch.arc_inc.n_arc_tiles)
     return batch.replace(**kwargs) if kwargs else batch
@@ -436,14 +493,31 @@ def graphs_to_batch(
     pad_graphs: Optional[int] = None,
     *,
     dense_blocks: bool = True,
+    agg_dtype: Optional[str] = None,
     tile_pack: bool = False,
     slot_pack: Optional[int] = None,
     strip_dtype: str = "float32",
     device="cuda",
 ) -> GraphBatch:
-    """Merge host graphs (disjoint union) and pad them into one batch."""
+    """Merge host graphs (disjoint union) and pad them into one batch; the
+    operator options pass through to ``from_graph_object``."""
     merged = GraphObject.merge(list(graphs), focus=focus, aggregation_mode=aggregation_mode)
     return from_graph_object(
-        merged, pad_nodes, pad_arcs, pad_graphs, dense_blocks=dense_blocks, tile_pack=tile_pack,
-        slot_pack=slot_pack, strip_dtype=strip_dtype, device=device,
+        merged, pad_nodes, pad_arcs, pad_graphs, dense_blocks=dense_blocks, agg_dtype=agg_dtype,
+        tile_pack=tile_pack, slot_pack=slot_pack, strip_dtype=strip_dtype, device=device,
     )
+
+
+def single_graph_batch(
+    g: GraphObject,
+    batch_set_mask: Optional[np.ndarray] = None,
+    pad_nodes: Optional[int] = None,
+    pad_arcs: Optional[int] = None,
+    *,
+    agg_dtype: Optional[str] = None,
+    device="cuda",
+) -> GraphBatch:
+    """Batch view over one large graph: the full topology with a per-batch
+    set mask (single-graph mini-batching)."""
+    return from_graph_object(g, pad_nodes, pad_arcs, pad_graphs=None, set_mask_override=batch_set_mask,
+                             agg_dtype=agg_dtype, device=device)

@@ -57,6 +57,35 @@ def pack_tiles(graph_sizes: np.ndarray, tile: int = 128) -> Tuple[np.ndarray, in
     return starts, n_tiles * tile
 
 
+def order_tiles_by_format(
+    starts: np.ndarray, graph_sizes: np.ndarray, slot: int, tile: int = 128, align: int = 1
+) -> Tuple[np.ndarray, int, int]:
+    """Permute tiles so slot-pure tiles (every resident graph ≤ ``slot``)
+    precede tiles holding any larger graph: the mixed-format strip operator
+    stores the former as compact strips and the latter as full diagonal
+    blocks.  The strip region is padded with empty tiles to a multiple of
+    ``align``; spanning (> tile) runs stay contiguous (stable partition).
+    Returns (new_starts, n_strip_tiles, total_padded_nodes)."""
+    starts = np.asarray(starts, dtype=np.int64)
+    sizes = np.asarray(graph_sizes, dtype=np.int64)
+    if len(starts) == 0:
+        return starts, 0, 0
+    tile0 = starts // tile
+    end_tile = (starts + np.maximum(sizes, 1) - 1) // tile
+    n_tiles = int(end_tile.max()) + 1
+    is_block = np.zeros(n_tiles, bool)
+    for g in np.flatnonzero(sizes > slot):
+        is_block[tile0[g] : end_tile[g] + 1] = True
+    ns_raw = int((~is_block).sum())
+    ns = -(-ns_raw // align) * align
+    order = np.argsort(is_block, kind="stable")
+    new_of_old = np.empty(n_tiles, np.int64)
+    new_of_old[order[:ns_raw]] = np.arange(ns_raw)
+    new_of_old[order[ns_raw:]] = ns + np.arange(n_tiles - ns_raw)
+    new_starts = new_of_old[tile0] * tile + starts % tile
+    return new_starts, ns, (ns + n_tiles - ns_raw) * tile
+
+
 def positions_from_starts(graph_of_node: np.ndarray, starts: np.ndarray) -> np.ndarray:
     """Node positions for a per-graph start layout: node i of graph g lands
     at ``starts[g] + rank_of_i_within_g`` (original relative order)."""

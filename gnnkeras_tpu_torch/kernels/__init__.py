@@ -13,8 +13,9 @@ and nowhere else; ``reset_launches`` sets every count to 0.
 The kernels that ``model.forward(training=False)`` reaches are also
 ``torch.library`` custom operators (``gnnkeras_tpu_torch::strip_matmul`` in
 ``ops/strip.py``, ``gnnkeras_tpu_torch::incidence_select`` in
-``ops/incidence.py``), which a program saved by ``serving.export_forward``
-calls; importing those two modules registers them.
+``ops/incidence.py``, ``gnnkeras_tpu_torch::qbcsr_matmul`` in
+``ops/bcsr.py``), which a program saved by ``serving.export_forward``
+calls; importing those modules registers them.
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ _I = ctypes.c_int
 # source name -> {C entry point: argtypes}
 _ENTRIES = {
     "strip_matmul": {
-        "gnn_strip_matmul": [_P, _P, _I, _P, _P, _I, _I, _P],
-        "gnn_strip_matmul_t": [_P, _P, _I, _P, _P, _I, _I, _P],
+        "gnn_strip_matmul": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P],
+        "gnn_strip_matmul_t": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P],
     },
     "fused_unfold": {"gnn_fused_unfold_t": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "fused_unfold_rm": {"gnn_fused_unfold": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]},
@@ -52,12 +53,16 @@ _ENTRIES = {
         "gnn_incidence_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
         "gnn_incidence_scatter": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     },
+    "qbcsr": {
+        "gnn_qbcsr_matmul": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "gnn_qbcsr_matmul_t": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
 }
 SOURCES = tuple(_ENTRIES)
 
 LAUNCHES: Dict[str, int] = {
     "strip_matmul": 0, "strip_matmul_t": 0, "fused_unfold_t": 0, "fused_unfold": 0, "incidence_select": 0,
-    "incidence_scatter": 0,
+    "incidence_scatter": 0, "qbcsr_matmul": 0, "qbcsr_matmul_t": 0,
 }
 
 _lock = threading.Lock()

@@ -31,8 +31,10 @@ the readout input ``[state | labels]``; nothing is peeled.
 
 Two engines, picked per batch as in the JAX package (``_use_transposed``):
 row-major (N, d) state through ``GraphBatch.aggregate``, and feature-major
-(d_pad, N) state through the slot-128 strip kernel (``ops/strip.py``) or the
-dense-block BCSR.  The arc-focused readout reads both endpoints' rows
+(d_pad, N) state through the strip kernel (``ops/strip.py``, slot 128 or
+the slot-32/64 mixed format), the banded decomposition (``ops/banded.py``),
+quantised BCSR (``ops/bcsr.py``, kernel row 8) or the dense-block BCSR.
+Batches carrying a banded or quantised operator always run feature-major.  The arc-focused readout reads both endpoints' rows
 through the incidence select and, backward, scatter kernels
 (``ops/incidence.py``).  The LGNN and composite models come with later
 slices.
@@ -86,15 +88,22 @@ def unconverged(state, state_old, node_mask, threshold: float, feature_axis: int
 
 def aggregate_t(state_t: torch.Tensor, batch: GraphBatch, sd: int) -> torch.Tensor:
     """Feature-major ``Adjᵀ·state`` through the strip operator when present,
-    else the dense-block BCSR, sliced to the real feature rows."""
+    else the batch's block operator (banded decomposition, quantised BCSR or
+    dense-block BCSR), sliced to the real feature rows."""
     if batch.strip is not None:
         from gnnkeras_tpu_torch.ops.strip import strip_aggregate_t
 
         agg = strip_aggregate_t(state_t, batch.strip)
     else:
-        from gnnkeras_tpu_torch.ops.bcsr import bcsr_aggregate_t
+        from gnnkeras_tpu_torch.ops.banded import BandedOperator, banded_aggregate_t
+        from gnnkeras_tpu_torch.ops.bcsr import QuantBcsr, bcsr_aggregate_t, qbcsr_aggregate_t
 
-        agg = bcsr_aggregate_t(state_t, batch.bcsr)
+        if isinstance(batch.bcsr, BandedOperator):
+            agg = banded_aggregate_t(state_t, batch.bcsr)
+        elif isinstance(batch.bcsr, QuantBcsr):
+            agg = qbcsr_aggregate_t(state_t, batch.bcsr)
+        else:
+            agg = bcsr_aggregate_t(state_t, batch.bcsr)
     return agg[:sd]
 
 
@@ -200,9 +209,13 @@ class GNNnodeBased(GraphModel):
 
     # -- unfolding -------------------------------------------------------------
     def _use_transposed(self, batch: GraphBatch) -> bool:
-        """The feature-major engine for strip batches, and for plain-BCSR
+        """The feature-major engine for strip batches and for batches with a
+        banded or quantised operator (built for it), and for plain-BCSR
         batches of narrow state, as the JAX package picks it by default."""
-        if batch.strip is not None:
+        from gnnkeras_tpu_torch.ops.banded import BandedOperator
+        from gnnkeras_tpu_torch.ops.bcsr import QuantBcsr
+
+        if batch.strip is not None or isinstance(batch.bcsr, (BandedOperator, QuantBcsr)):
             return True
         if batch.bcsr is None:
             return False

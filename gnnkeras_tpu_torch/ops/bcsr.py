@@ -1,27 +1,42 @@
-"""Block-sparse (BCSR) neighbour aggregation.
+"""Block-sparse (BCSR) neighbour aggregation, plain and quantised.
 
-Merged disjoint-union batches tile into a thin band of dense 128×128 blocks;
-aggregation is a tile gather, one batched block product and a segment sum
-over destination tiles:
+Merged disjoint-union batches and banded graphs tile into a thin band of
+dense 128×128 blocks; aggregation is a tile gather, one batched block
+product and a segment sum over destination tiles:
 
     gathered = state_tiles[src_tile]
     prod     = einsum('bij,bid->bjd', blocks, gathered)
     agg      = segment_sum(prod, dst_tile, n_tiles)
 
 ``blocks[b][i, j] = w(edge src_tile[b]·T+i → dst_tile[b]·T+j)``.  The JAX
-package also leaves these products to its compiler (plain einsums, no Pallas
-kernel), so here they are ``torch.einsum`` plus ``index_add_``.  Counterpart
-of ``gnnkeras_tpu.ops.bcsr`` up to ``pad_bcsr``; ``QuantBcsr`` comes with a
-later slice.
+package leaves the float products to its compiler (plain einsums, no Pallas
+kernel), so here they are ``torch.einsum`` plus ``index_add_``; blocks cast
+to bf16 multiply the state rounded to bf16 and sum in f32, as JAX's
+``preferred_element_type=f32`` does.
+
+``QuantBcsr`` stores the blocks as an int8 0/1 mask with one f32 scale per
+(block, destination column), or as bf16 weights: the counterpart of the JAX
+package's quantised BCSR, whose per-block products are a Pallas kernel.
+Here the whole ``Mᵀ·state`` (gather, products, sum per destination tile) is
+one CUDA kernel per direction (``csrc/qbcsr.cu``): ``qbcsr_matmul`` walks
+each destination tile's blocks through ``row_ptr``, and its backward
+``qbcsr_matmul_t`` walks each source tile's blocks through ``src_order`` /
+``src_row_ptr``, reading the forward blocks transposed.  So no transposed
+copy of the operator is stored (the JAX package keeps one, ``mask_t``).  On
+a CPU tensor each wrapper runs its plain PyTorch version.  The forward is
+also the custom operator ``gnnkeras_tpu_torch::qbcsr_matmul``, which an
+exported program calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gnnkeras_tpu_torch import native
 from gnnkeras_tpu_torch.ops.segment import segment_sum
@@ -33,6 +48,12 @@ TILE = 128
 # build BCSR only while the nonzero blocks stay within this multiple of the
 # diagonal; beyond it the dense blocks outweigh the edge-list scatter
 _MAX_BAND_FACTOR = 8
+
+# quantised block lists are padded to a multiple of this: the CUDA kernels do
+# not need it, but it keeps the blocks equal to the JAX package's, block for block
+_QB_KB = 16
+
+_FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,12 +131,21 @@ def build_bcsr(
     )
 
 
+def _block_products(gathered: torch.Tensor, blocks: torch.Tensor, equation: str) -> torch.Tensor:
+    """``einsum(equation)`` of gathered state tiles (already in the blocks'
+    dtype) with the blocks; bf16 blocks multiply in f32, so the products of
+    the rounded operands sum in f32."""
+    if blocks.dtype == torch.bfloat16:
+        gathered, blocks = gathered.float(), blocks.float()
+    return torch.einsum(equation, gathered, blocks)
+
+
 def bcsr_aggregate(state: torch.Tensor, m: BcsrMatrix) -> torch.Tensor:
     """``Mᵀ·state``: (n_src_tiles·T, d) → (n_dst_tiles·T, d)."""
     d = state.shape[1]
     operand = state.to(m.blocks.dtype)
     gathered = operand.reshape(m.n_src_tiles, m.tile, d)[m.src_tile.long()]  # (B, T, d)
-    prod = torch.einsum("bij,bid->bjd", m.blocks, gathered).float()
+    prod = _block_products(gathered, m.blocks, "bid,bij->bjd").float()
     agg = segment_sum(prod, m.dst_tile, m.n_dst_tiles)
     return agg.reshape(m.n_dst_tiles * m.tile, d).to(state.dtype)
 
@@ -126,7 +156,7 @@ def bcsr_aggregate_t(state_t: torch.Tensor, m: BcsrMatrix) -> torch.Tensor:
     d = state_t.shape[0]
     operand = state_t.to(m.blocks.dtype)
     gathered = operand.reshape(d, m.n_src_tiles, m.tile)[:, m.src_tile.long()]  # (d, B, T)
-    prod = torch.einsum("dbi,bij->bdj", gathered, m.blocks).float()
+    prod = _block_products(gathered, m.blocks, "dbi,bij->bdj").float()
     agg = segment_sum(prod, m.dst_tile, m.n_dst_tiles)  # (n_dst, d, T)
     return agg.permute(1, 0, 2).reshape(d, m.n_dst_tiles * m.tile).to(state_t.dtype)
 
@@ -145,6 +175,17 @@ def transpose_bcsr(m: BcsrMatrix) -> BcsrMatrix:
     )
 
 
+def cast_bcsr(m: Optional[BcsrMatrix], dtype) -> Optional[BcsrMatrix]:
+    """``m`` with its blocks stored in ``dtype`` (a name or a torch dtype)."""
+    if m is None:
+        return None
+    if not isinstance(dtype, torch.dtype):
+        if str(dtype) not in _FLOAT_DTYPES:
+            raise ValueError(f"unsupported block dtype {dtype!r}; use one of {sorted(_FLOAT_DTYPES)}")
+        dtype = _FLOAT_DTYPES[str(dtype)]
+    return dataclasses.replace(m, blocks=m.blocks.to(dtype))
+
+
 def pad_bcsr(m: Optional[BcsrMatrix], n_blocks: int) -> Optional[BcsrMatrix]:
     """Zero-pad the block list to ``n_blocks`` (exact: zero blocks add
     nothing).  Padding targets the last destination tile, which keeps the
@@ -161,3 +202,279 @@ def pad_bcsr(m: Optional[BcsrMatrix], n_blocks: int) -> Optional[BcsrMatrix]:
         src_tile=torch.cat([m.src_tile, torch.zeros(extra, dtype=m.src_tile.dtype, device=dev)]),
         dst_tile=torch.cat([m.dst_tile, torch.full((extra,), m.n_dst_tiles - 1, dtype=m.dst_tile.dtype, device=dev)]),
     )
+
+
+def empty_bcsr(n_src_tiles: int, n_dst_tiles: int, n_blocks: int, tile: int = TILE, dtype=None,
+               device="cpu") -> BcsrMatrix:
+    """An all-zero operator of ``n_blocks`` blocks (at least one), the
+    identity of block aggregation: it gives operators that must share one
+    structure the same residual where some have none."""
+    dtype = torch.from_numpy(np.zeros(0, floatx())).dtype if dtype is None else dtype
+    n_blocks = max(int(n_blocks), 1)
+    return BcsrMatrix(
+        blocks=torch.zeros((n_blocks, tile, tile), dtype=dtype, device=device),
+        src_tile=torch.zeros(n_blocks, dtype=torch.int32, device=device),
+        dst_tile=torch.full((n_blocks,), max(n_dst_tiles - 1, 0), dtype=torch.int32, device=device),
+        n_src_tiles=int(n_src_tiles),
+        n_dst_tiles=int(n_dst_tiles),
+        tile=tile,
+    )
+
+
+# -- quantised blocks: int8 mask + per-column scale, or bf16 weights ----------
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantBcsr:
+    """Quantised block operator, blocks sorted by destination tile.
+
+    ``mask`` is int8 0/1 with ``scale`` the per-(block, destination column)
+    f32 factor, or bf16 weights with ``scale=None``.  ``row_ptr[j] ..
+    row_ptr[j+1]`` are destination tile j's blocks; ``src_order`` lists the
+    blocks sorted (stably) by source tile and ``src_row_ptr`` delimits each
+    source tile's run in it, for the backward, which reads the same blocks
+    transposed."""
+
+    mask: torch.Tensor  # (B, T, T) int8 or bf16
+    scale: Optional[torch.Tensor]  # (B, T) f32 or None
+    src_tile: torch.Tensor  # (B,) i32
+    dst_tile: torch.Tensor  # (B,) i32, sorted
+    row_ptr: torch.Tensor  # (n_dst_tiles + 1,) i32
+    src_order: torch.Tensor  # (B,) i32
+    src_row_ptr: torch.Tensor  # (n_src_tiles + 1,) i32
+    n_src_tiles: int
+    n_dst_tiles: int
+    tile: int
+
+    def to(self, device) -> "QuantBcsr":
+        return dataclasses.replace(
+            self, **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+                     if isinstance(getattr(self, f.name), torch.Tensor)}
+        )
+
+
+register_tensor_dataclass(QuantBcsr, static=("n_src_tiles", "n_dst_tiles", "tile"))
+
+
+def _block_index(src_tile: torch.Tensor, dst_tile: torch.Tensor, n_src: int, n_dst: int):
+    """(row_ptr, src_order, src_row_ptr) of a block list sorted by
+    destination tile, on the tile ids' device."""
+    dev, i32 = dst_tile.device, torch.int32
+    row_ptr = torch.searchsorted(dst_tile, torch.arange(n_dst + 1, dtype=dst_tile.dtype, device=dev)).to(i32)
+    src_order = torch.argsort(src_tile, stable=True)
+    by_src = src_tile[src_order].contiguous()
+    src_row_ptr = torch.searchsorted(by_src, torch.arange(n_src + 1, dtype=by_src.dtype, device=dev)).to(i32)
+    return row_ptr, src_order.to(i32), src_row_ptr
+
+
+def quantize_bcsr(m: Optional[BcsrMatrix], dtype="int8", device=None) -> Optional[QuantBcsr]:
+    """Host-side quantisation of a built operator, placed on ``device``
+    (default: ``m``'s).  ``int8`` needs the column-constant factorisation
+    (sum/normalized/average over deduplicated arcs) and falls back to bf16
+    weights, with a warning, where it does not hold; ``bfloat16`` stores the
+    weights.  The block list is padded to a multiple of 16 with zero blocks
+    at the last destination tile."""
+    if m is None:
+        return None
+    if str(dtype) not in ("int8", "bfloat16"):
+        raise ValueError(f"unsupported quantised storage {dtype!r}; use 'int8' or 'bfloat16'")
+    device = m.blocks.device if device is None else device
+    blocks = m.blocks.cpu().float().numpy()
+    scale = None
+    if str(dtype) == "int8":
+        fac = native.factor_mask_scale(blocks)
+        if fac is not None:
+            mask, scale = fac
+        else:
+            warnings.warn(
+                "int8 mask+scale BCSR storage does not apply: the operator "
+                "weights are not column-factorable (parallel arcs, or "
+                "per-arc weights); storing the blocks as bfloat16 instead",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+    if scale is None:
+        mask_t = torch.from_numpy(blocks).to(torch.bfloat16)
+    else:
+        mask_t = torch.from_numpy(mask)
+    src_tile, dst_tile = m.src_tile.cpu(), m.dst_tile.cpu()
+    b = mask_t.shape[0]
+    extra = -(-max(b, 1) // _QB_KB) * _QB_KB - b
+    scale_t = None if scale is None else torch.from_numpy(scale)
+    if extra:
+        mask_t = torch.cat([mask_t, mask_t.new_zeros((extra,) + tuple(mask_t.shape[1:]))])
+        if scale_t is not None:
+            scale_t = torch.cat([scale_t, scale_t.new_zeros((extra, scale_t.shape[1]))])
+        src_tile = torch.cat([src_tile, src_tile.new_zeros(extra)])
+        dst_tile = torch.cat([dst_tile, dst_tile.new_full((extra,), m.n_dst_tiles - 1)])
+    row_ptr, src_order, src_row_ptr = _block_index(src_tile, dst_tile, m.n_src_tiles, m.n_dst_tiles)
+    return QuantBcsr(
+        mask=mask_t.contiguous(), scale=scale_t, src_tile=src_tile.contiguous(), dst_tile=dst_tile.contiguous(),
+        row_ptr=row_ptr, src_order=src_order, src_row_ptr=src_row_ptr,
+        n_src_tiles=m.n_src_tiles, n_dst_tiles=m.n_dst_tiles, tile=m.tile,
+    ).to(device)
+
+
+def pad_qbcsr(qm: Optional[QuantBcsr], n_blocks: int) -> Optional[QuantBcsr]:
+    """``pad_bcsr`` for quantised operators: zero blocks at the last
+    destination tile up to ``n_blocks`` rounded up to a multiple of 16; the
+    walk indices are rebuilt on the operator's device."""
+    if qm is None:
+        return None
+    n_blocks = -(-max(int(n_blocks), 1) // _QB_KB) * _QB_KB
+    e = n_blocks - int(qm.mask.shape[0])
+    if e <= 0:
+        return qm
+    zpad = lambda a: torch.cat([a, a.new_zeros((e,) + tuple(a.shape[1:]))])
+    src_tile = torch.cat([qm.src_tile, qm.src_tile.new_zeros(e)])
+    dst_tile = torch.cat([qm.dst_tile, qm.dst_tile.new_full((e,), qm.n_dst_tiles - 1)])
+    row_ptr, src_order, src_row_ptr = _block_index(src_tile, dst_tile, qm.n_src_tiles, qm.n_dst_tiles)
+    return dataclasses.replace(
+        qm, mask=zpad(qm.mask), scale=None if qm.scale is None else zpad(qm.scale), src_tile=src_tile,
+        dst_tile=dst_tile, row_ptr=row_ptr, src_order=src_order, src_row_ptr=src_row_ptr,
+    )
+
+
+def _qbcsr_matmul_plain(x, mask, scale, src_tile, dst_tile, n_dst: int) -> torch.Tensor:
+    """``out[:, tile j] = Σ_{b: dst_tile[b]=j} (x[:, tile src_tile[b]] @
+    mask[b]) · diag(scale[b])``: gather, per-block products, the scale on
+    the output columns, segment sum."""
+    d = x.shape[0]
+    gathered = x.reshape(d, -1, TILE)[:, src_tile.long()]  # (d, B, T)
+    prod = torch.einsum("dbi,bij->bdj", gathered, mask.to(x.dtype))
+    if scale is not None:
+        prod = prod * scale[:, None, :]
+    out = segment_sum(prod, dst_tile, n_dst)  # (n_dst, d, T)
+    return out.permute(1, 0, 2).reshape(d, n_dst * TILE)
+
+
+def _qbcsr_matmul_t_plain(ct, mask, scale, src_tile, dst_tile, n_src: int) -> torch.Tensor:
+    """The backward: ``out[:, tile i] = Σ_{b: src_tile[b]=i} (ct[:, tile
+    dst_tile[b]] · diag(scale[b])) @ mask[b]ᵀ``, the scale on the input
+    columns."""
+    d = ct.shape[0]
+    gathered = ct.reshape(d, -1, TILE)[:, dst_tile.long()]  # (d, B, T)
+    if scale is not None:
+        gathered = gathered * scale[None]
+    prod = torch.einsum("dbj,bij->bdi", gathered, mask.to(ct.dtype))
+    out = segment_sum(prod, src_tile, n_src)  # (n_src, d, T)
+    return out.permute(1, 0, 2).reshape(d, n_src * TILE)
+
+
+_QMASK_KIND = {torch.int8: 0, torch.bfloat16: 2}
+
+
+def _check_qbcsr(name: str, x: torch.Tensor, mask, scale, n_in_tiles: int) -> None:
+    if x.dim() != 2 or mask.dim() != 3 or tuple(mask.shape[1:]) != (TILE, TILE):
+        raise ValueError(f"{name}: bad shapes state {tuple(x.shape)}, blocks {tuple(mask.shape)}")
+    if x.shape[1] != n_in_tiles * TILE:
+        raise ValueError(f"{name}: state has {x.shape[1]} columns, operator takes {n_in_tiles * TILE}")
+    if (mask.dtype == torch.int8) != (scale is not None):
+        raise ValueError(f"{name}: int8 blocks need a scale, bf16 blocks take none")
+    if scale is not None and tuple(scale.shape) != (mask.shape[0], TILE):
+        raise ValueError(f"{name}: scale {tuple(scale.shape)} must be {(mask.shape[0], TILE)}")
+
+
+def _launch_qbcsr(name: str, x, mask, scale, tile_ids, order, ptr, n_out: int) -> torch.Tensor:
+    """One launch of ``gnn_{name}`` on the card, counted in
+    ``kernels.LAUNCHES[name]``, or an error.  ``tile_ids`` are the tiles the
+    kernel reads the state from (src for the forward, dst for the backward),
+    ``order`` the walk order (None: the blocks' own), ``ptr`` the per-output
+    -tile run offsets."""
+    from gnnkeras_tpu_torch import kernels
+
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    d = x.shape[0]
+    operands = [t for t in (x, mask, scale, tile_ids, order, ptr) if t is not None]
+    if any(o.device != x.device for o in operands):
+        raise ValueError(f"{name}: operands on different devices")
+    if not all(o.is_contiguous() for o in operands):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if x.dtype != torch.float32 or (scale is not None and scale.dtype != torch.float32):
+        raise ValueError(f"{name}: state and scale must be float32")
+    if mask.dtype not in _QMASK_KIND:
+        raise ValueError(f"{name}: unsupported block dtype {mask.dtype}")
+    if mask.data_ptr() % 4:
+        raise ValueError(f"{name}: the blocks must start on a 4-byte boundary")
+    if any(t.dtype != torch.int32 for t in (tile_ids, ptr) + (() if order is None else (order,))):
+        raise ValueError(f"{name}: tile ids and offsets must be int32")
+    if d % 8:
+        raise ValueError(f"{name}: feature rows {d} must be a multiple of 8")
+    out = x.new_empty((d, n_out * TILE))
+    fn = getattr(kernels.load("qbcsr"), f"gnn_{name}")
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(), mask.data_ptr(), _QMASK_KIND[mask.dtype], None if scale is None else scale.data_ptr(),
+            tile_ids.data_ptr(), None if order is None else order.data_ptr(), ptr.data_ptr(), out.data_ptr(),
+            d, x.shape[1] // TILE, n_out, kernels.stream_of(x),
+        )
+    kernels.check(err, name)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+@torch.library.custom_op("gnnkeras_tpu_torch::qbcsr_matmul", mutates_args=())
+def _qbcsr_matmul_op(x: torch.Tensor, mask: torch.Tensor, scale: Optional[torch.Tensor], src_tile: torch.Tensor,
+                     dst_tile: torch.Tensor, row_ptr: torch.Tensor, n_dst: int) -> torch.Tensor:
+    """The forward as one operator of ``torch.library``, so that
+    ``torch.export`` records it as one node: the kernel on the card, the
+    plain version on the CPU."""
+    if x.device.type == "cpu":
+        return _qbcsr_matmul_plain(x, mask, scale, src_tile, dst_tile, n_dst)
+    return _launch_qbcsr("qbcsr_matmul", x, mask, scale, src_tile, None, row_ptr, n_dst)
+
+
+@_qbcsr_matmul_op.register_fake
+def _(x, mask, scale, src_tile, dst_tile, row_ptr, n_dst):
+    return x.new_empty((x.shape[0], n_dst * TILE))
+
+
+def qbcsr_matmul(x: torch.Tensor, qm: QuantBcsr) -> torch.Tensor:
+    """``Mᵀ·x`` on feature-major f32 state (d multiple of 8, n_src_tiles·128
+    columns) → (d, n_dst_tiles·128): kernel row 8's forward (not
+    differentiable; ``qbcsr_aggregate_t`` is)."""
+    _check_qbcsr("qbcsr_matmul", x, qm.mask, qm.scale, qm.n_src_tiles)
+    return _qbcsr_matmul_op(x, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.row_ptr, qm.n_dst_tiles)
+
+
+def qbcsr_matmul_t(ct: torch.Tensor, qm: QuantBcsr) -> torch.Tensor:
+    """The backward of ``qbcsr_matmul``: ``M·ct``, (d, n_dst_tiles·128) →
+    (d, n_src_tiles·128), the same blocks read transposed with the scale on
+    the input columns."""
+    _check_qbcsr("qbcsr_matmul_t", ct, qm.mask, qm.scale, qm.n_dst_tiles)
+    if ct.device.type == "cpu":
+        return _qbcsr_matmul_t_plain(ct, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.n_src_tiles)
+    return _launch_qbcsr("qbcsr_matmul_t", ct, qm.mask, qm.scale, qm.dst_tile, qm.src_order, qm.src_row_ptr,
+                         qm.n_src_tiles)
+
+
+class _QbcsrMatmul(torch.autograd.Function):
+    """The quantised block product with its backward kernel as the gradient
+    (the operator is data: it gets no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, qm):
+        ctx.qm = qm
+        return qbcsr_matmul(x, qm)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return qbcsr_matmul_t(ct.contiguous(), ctx.qm), None
+
+
+def qbcsr_aggregate_t(state_t: torch.Tensor, qm: QuantBcsr) -> torch.Tensor:
+    """``Mᵀ·state`` on feature-major state through the quantised blocks,
+    differentiable in ``state_t``; feature rows are padded to a multiple of
+    8 for the kernel and cut back."""
+    d = state_t.shape[0]
+    d_pad = -(-d // 8) * 8
+    x = state_t if d_pad == d else F.pad(state_t, (0, 0, 0, d_pad - d))
+    out = _QbcsrMatmul.apply(x.contiguous(), qm)
+    return out if d_pad == d else out[:d]
+
+
+def qbcsr_aggregate(state: torch.Tensor, qm: QuantBcsr) -> torch.Tensor:
+    """Row-major interface (transpose sandwich; the feature-major engine is
+    the intended consumer)."""
+    return qbcsr_aggregate_t(state.T, qm).T

@@ -320,9 +320,9 @@ class ExportedForward:
 def load_exported(path: str, device="cuda") -> ExportedForward:
     """Load an artifact of :func:`export_forward` and place its program on
     ``device`` (default ``"cuda"``; raises when no card is present).  It
-    imports the two operator modules, which register the kernels' custom
+    imports the operator modules, which register the kernels' custom
     operators, and no model class."""
-    from gnnkeras_tpu_torch.ops import incidence, strip  # noqa: F401  (register the custom operators)
+    from gnnkeras_tpu_torch.ops import bcsr, incidence, strip  # noqa: F401  (register the custom operators)
 
     device = resolve_device(device)
     program = torch.export.load(os.path.join(path, "forward.pt2"))

@@ -8,8 +8,12 @@ slot-packed synthetic bench batch), the same forward fused into one launch
 loaded program's ``call``), the bench-scale train step
 (``training.trainer.train_step``, Adam, on the same batch), the arc-focused
 forward and train step (``GNNarcBased`` on ``bench_arc_graph``, the same
-graphs in arc focus) and for ``Predictor`` requests of 1, 16 and 64
-molecules (fused route), it prints one JSON line each with the
+graphs in arc focus), ``Predictor`` requests of 1, 16 and 64 molecules
+(fused route), and the single large graph's forward and train step
+(``large_graph_gnn`` on ``large_banded_graph``: 500,000 nodes, through the
+banded int8 decomposition of ``agg_dtype='auto'`` at band 64 and through
+quantised BCSR, ``agg_dtype='int8'``, at band 384; mse on its normal
+targets), it prints one JSON line each with the
 host-clock time (median of 7, synchronised), and, from one window of three
 calls under ``torch.profiler``: the window's wall time per call, the
 device-busy time per call (sum of kernel and memcpy time), the device's idle
@@ -167,6 +171,34 @@ def main() -> int:
         emit({"path": f"predictor_fused_{size}", "host_ms": host, "profiled_wall_ms": wall, "device_busy_ms": busy,
               "device_idle_share": 1.0 - busy / wall, "merge_ms": merge_ms, "batch_build_ms": build_ms,
               "fused_op_build_ms": op_ms, "device_ms_by_kernel": top})
+
+    from gnnkeras_tpu_torch.data.synthetic import large_banded_graph, large_graph_gnn
+
+    del model, batch, trained, arc_model, arc_batch, p, exported
+    torch.cuda.empty_cache()
+    for route, band, agg_dtype in (("large_banded_auto", 64, "auto"), ("large_quantised_int8", 384, "int8")):
+        g = large_banded_graph(band=band)
+        t = time.perf_counter()
+        big = from_graph_object(g, agg_dtype=agg_dtype, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        large = large_graph_gnn("cuda", seed=0)
+        fwd = lambda: large.forward(big, training=False)
+        host = _host_ms(fwd)
+        wall, busy, top = _profile(fwd)
+        emit({"path": f"{route}_forward", "operator": type(big.bcsr).__name__, "nodes": int(g.nodes.shape[0]),
+              "arcs": int(g.arcs.shape[0]), "host_build_s": build_s, "host_ms": host, "profiled_wall_ms": wall,
+              "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall, "device_ms_by_kernel": top})
+        large.compile(optimizer="adam:0.01", loss="mse")
+        step = lambda: train_step(large, big)
+        torch.cuda.reset_peak_memory_stats()
+        host = _host_ms(step)
+        wall, busy, top = _profile(step)
+        emit({"path": f"{route}_train_step", "host_ms": host, "profiled_wall_ms": wall, "device_busy_ms": busy,
+              "device_idle_share": 1.0 - busy / wall, "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "device_ms_by_kernel": top})
+        del big, large, g
+        torch.cuda.empty_cache()
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

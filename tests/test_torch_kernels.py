@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from gnnkeras_tpu_torch import kernels
-from gnnkeras_tpu_torch.ops import fused, incidence, strip
+from gnnkeras_tpu_torch.ops import bcsr, fused, incidence, strip
 
 # one thread: the CPU wrapper tests compare bit for bit, and a multi-threaded
 # BLAS may split a product differently from one call to the next
@@ -31,6 +31,55 @@ def _strip_inputs(storage, t=5, d=16, seed=0):
         return x, m.to(torch.int8), torch.rand(t, 128, generator=g)
     w = m * torch.rand(t, 128, 128, generator=g)
     return x, w.to(getattr(torch, storage)), None
+
+
+def _mixed_inputs(storage, slot, ts=3, tb=2, d=16, seed=0):
+    """State and a mixed-format operator: ``ts`` compact (slot, 128) strips,
+    then ``tb`` full blocks (None when 0), in ``storage`` with the int8
+    scales."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(d, (ts + tb) * 128, generator=g)
+
+    def op(shape):
+        m = torch.rand(*shape, generator=g) < 0.08
+        if storage == "int8":
+            return m.to(torch.int8), torch.rand(shape[0], 128, generator=g)
+        return (m * torch.rand(*shape, generator=g)).to(getattr(torch, storage)), None
+
+    strip_op, scale = op((ts, slot, 128))
+    blocks, blocks_scale = op((tb, 128, 128)) if tb else (None, None)
+    return x, strip_op, scale, blocks, blocks_scale
+
+
+def _qbcsr_inputs(storage, n_tiles=12, n_dst_tiles=None, per_tile=3, d=16, pad_to=None, seed=0):
+    """State and a quantised operator of ``per_tile`` random source tiles per
+    destination tile (``n_dst_tiles`` of them: rectangular when it differs
+    from ``n_tiles``), sparse 0/1 masks with random column scales, or bf16
+    weights; optionally padded to ``pad_to`` blocks."""
+    rng = np.random.default_rng(seed)
+    n_dst_tiles = n_tiles if n_dst_tiles is None else n_dst_tiles
+    dst_tile = np.repeat(np.arange(n_dst_tiles), per_tile)
+    src_tile = rng.integers(0, n_tiles, len(dst_tile))
+    key = np.unique(src_tile * n_dst_tiles + dst_tile)
+    src, dst = [], []
+    for k in key:
+        s, t = divmod(int(k), n_dst_tiles)
+        e = rng.integers(0, 128, (2, 40))
+        src.append(s * 128 + e[0])
+        dst.append(t * 128 + e[1])
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    pairs = np.unique(np.stack([src, dst], 1), axis=0)
+    w = rng.random(len(pairs)) + 0.5
+    if storage == "int8":  # one weight per destination column: factors
+        w = (1.0 / (1 + pairs[:, 1] % 7))
+    m = bcsr.build_bcsr(pairs[:, 0], pairs[:, 1], w, n_tiles * 128, n_dst_tiles * 128, max_band_factor=10**9)
+    qm = bcsr.quantize_bcsr(m, storage)
+    assert (qm.scale is not None) == (storage == "int8")
+    if pad_to is not None:
+        qm = bcsr.pad_qbcsr(qm, pad_to)
+    x = torch.from_numpy(rng.normal(size=(d, n_tiles * 128)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(d, n_dst_tiles * 128)).astype(np.float32))
+    return x, ct, qm
 
 
 def _fused_inputs(t=4, d=14, d_pad=16, seed=0):
@@ -67,6 +116,33 @@ def test_strip_t_cpu_wrapper_takes_plain_version(storage):
     ct = torch.randn(x.shape, generator=torch.Generator().manual_seed(1))
     (grad,) = torch.autograd.grad(strip.strip_matmul(x, m, s), x, ct)
     torch.testing.assert_close(grad, strip._strip_matmul_t_plain(ct, m, s), rtol=0, atol=0)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("slot", [32, 64])
+@pytest.mark.parametrize("storage", ["int8", "float32", "bfloat16"])
+def test_mixed_strip_cpu_wrappers_take_plain_version(storage, slot):
+    x, *op = _mixed_inputs(storage, slot)
+    before = dict(kernels.LAUNCHES)
+    torch.testing.assert_close(strip.strip_matmul(x, *op, slot), strip._strip_matmul_plain(x, *op, slot),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(strip.strip_matmul_t(x, *op, slot), strip._strip_matmul_t_plain(x, *op, slot),
+                               rtol=0, atol=0)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("storage", ["int8", "bfloat16"])
+def test_qbcsr_cpu_wrappers_take_plain_version(storage):
+    x, ct, qm = _qbcsr_inputs(storage, n_dst_tiles=5)
+    before = dict(kernels.LAUNCHES)
+    want = bcsr._qbcsr_matmul_plain(x, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.n_dst_tiles)
+    torch.testing.assert_close(bcsr.qbcsr_matmul(x, qm), want, rtol=0, atol=0)
+    want_t = bcsr._qbcsr_matmul_t_plain(ct, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.n_src_tiles)
+    torch.testing.assert_close(bcsr.qbcsr_matmul_t(ct, qm), want_t, rtol=0, atol=0)
+    # the autograd backward of qbcsr_aggregate_t runs the same wrapper
+    x.requires_grad_(True)
+    (grad,) = torch.autograd.grad(bcsr.qbcsr_aggregate_t(x, qm), x, ct)
+    torch.testing.assert_close(grad, want_t, rtol=0, atol=0)
     assert kernels.LAUNCHES == before
 
 
@@ -135,7 +211,7 @@ def test_sources_and_build_paths():
         path = kernels.library_path(name)
         assert path.startswith(kernels.BUILD_DIR) and path.endswith(".so")
     assert set(kernels.LAUNCHES) == {"strip_matmul", "strip_matmul_t", "fused_unfold_t", "fused_unfold",
-                                     "incidence_select", "incidence_scatter"}
+                                     "incidence_select", "incidence_scatter", "qbcsr_matmul", "qbcsr_matmul_t"}
 
 
 # Every width each kernel is built for: the strip kernels' 8-row and 16-row
@@ -156,6 +232,83 @@ def test_strip_kernel_matches_plain_on_card(cuda, d, storage, direction):
         # f32 sums of the same terms in another order
         torch.testing.assert_close(got, plain(x, m, s), rtol=1e-5, atol=1e-5)
     assert kernels.LAUNCHES[direction] == before + 2
+
+
+# The strip kernels at slot 32 and 64: both regions (compact strips, then
+# full blocks), no strip tile (Ts = 0: the blocks run as slot-128 strips, as
+# ``diag_operands`` passes them), and no block tile, in all three storages
+# and both directions, at the 8- and 16-row chunks.
+_MIXED_CASES = {"both_regions": dict(ts=20, tb=20), "no_strip_tile": dict(ts=0, tb=20),
+                "no_block_tile": dict(ts=20, tb=0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["strip_matmul", "strip_matmul_t"])
+@pytest.mark.parametrize("storage", ["int8", "float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(_MIXED_CASES))
+@pytest.mark.parametrize("slot", [32, 64])
+@pytest.mark.parametrize("d", [8, 16, 24])
+def test_mixed_strip_kernel_matches_plain_on_card(cuda, d, slot, case, storage, direction):
+    x, strip_op, scale, blocks, blocks_scale = _mixed_inputs(storage, slot, d=d, seed=d + slot,
+                                                             **_MIXED_CASES[case])
+    op = strip.diag_operands(strip.StripOperator(strip=strip_op, residual=None, scale=scale, slot=slot,
+                                                 blocks=blocks, blocks_scale=blocks_scale))
+    x, op = x.to(cuda), [o if not isinstance(o, torch.Tensor) else o.to(cuda) for o in op]
+    plain = {"strip_matmul": strip._strip_matmul_plain, "strip_matmul_t": strip._strip_matmul_t_plain}[direction]
+    before = kernels.LAUNCHES[direction]
+    for _ in range(2):  # the second launch finds any shared-memory limit already raised
+        got = getattr(strip, direction)(x, *op)
+        torch.cuda.synchronize()
+        # f32 sums of the same terms in another order
+        torch.testing.assert_close(got, plain(x, *op), rtol=1e-5, atol=1e-5)
+    assert kernels.LAUNCHES[direction] == before + 2
+
+
+# Row 8 at every width its kernel is built for (chunks of 8 to 40 rows:
+# 8-40, and 48 = two 24-row chunks), int8 and bf16, both directions; a
+# padded block list (zero blocks at the last tile) and a rectangular
+# operator (more source than destination tiles, and fewer).
+_QBCSR_CASES = {"square": dict(), "padded": dict(pad_to=80), "rectangular_wide": dict(n_dst_tiles=5),
+                "rectangular_tall": dict(n_tiles=5, n_dst_tiles=12)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["int8", "bfloat16"])
+@pytest.mark.parametrize("case", list(_QBCSR_CASES))
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 48])
+def test_qbcsr_kernels_match_plain_on_card(cuda, d, case, storage):
+    x, ct, qm = _qbcsr_inputs(storage, d=d, seed=d, **_QBCSR_CASES[case])
+    if case == "padded":
+        assert qm.mask.shape[0] == 80 and not qm.mask[-1].any()
+    x, ct, qm = x.to(cuda), ct.to(cuda), qm.to(cuda)
+    want = bcsr._qbcsr_matmul_plain(x, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.n_dst_tiles)
+    want_t = bcsr._qbcsr_matmul_t_plain(ct, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.n_src_tiles)
+    before = dict(kernels.LAUNCHES)
+    for _ in range(2):  # the second launch finds any shared-memory limit already raised
+        got, got_t = bcsr.qbcsr_matmul(x, qm), bcsr.qbcsr_matmul_t(ct, qm)
+        torch.cuda.synchronize()
+        # f32 sums of a tile's block products in another order
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got_t, want_t, rtol=1e-5, atol=1e-5)
+    assert kernels.LAUNCHES["qbcsr_matmul"] == before["qbcsr_matmul"] + 2
+    assert kernels.LAUNCHES["qbcsr_matmul_t"] == before["qbcsr_matmul_t"] + 2
+    # the autograd backward of qbcsr_aggregate_t launches the backward kernel
+    xg = x.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(bcsr.qbcsr_aggregate_t(xg, qm), xg, ct)
+    torch.testing.assert_close(grad, want_t, rtol=1e-5, atol=1e-5)
+    assert kernels.LAUNCHES["qbcsr_matmul_t"] == before["qbcsr_matmul_t"] + 3
+
+
+@pytest.mark.cuda
+def test_qbcsr_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x, ct, qm = _qbcsr_inputs("int8")
+    x, qm = x.to(cuda), qm.to(cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bcsr.qbcsr_matmul(x[:6].contiguous(), qm)
+    with pytest.raises(ValueError, match="float32"):
+        bcsr.qbcsr_matmul(x.double(), qm)
+    with pytest.raises(ValueError, match="contiguous"):
+        bcsr.qbcsr_matmul(torch.zeros(x.shape[1], x.shape[0], device=cuda).T, qm)
 
 
 @pytest.mark.cuda

@@ -57,5 +57,7 @@ def test_strip_matmul_rejects_bad_operands():
         tstrip.strip_matmul(x, torch.zeros(2, 128, 128, dtype=torch.int8))
     with pytest.raises(ValueError):  # a scale that does not cover every tile
         tstrip.strip_matmul(x, torch.zeros(2, 128, 128, dtype=torch.int8), torch.zeros(1, 128))
-    with pytest.raises(NotImplementedError):
-        tstrip.build_strip_operator(np.array([0]), np.array([1]), np.ones(1), 128, slot=32)
+    with pytest.raises(ValueError):  # a slot other than 32, 64 or 128
+        tstrip.build_strip_operator(np.array([0]), np.array([1]), np.ones(1), 128, slot=48)
+    with pytest.raises(ValueError):  # a compact strip whose slot does not match its shape
+        tstrip.strip_matmul(x, torch.zeros(2, 32, 128), slot=64)
