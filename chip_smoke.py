@@ -85,7 +85,20 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    the bench batch (every
    tile slot-pure), both directions; the flagship's forward and one Adam
    step on each of the mixed batches, and its forward on the bench batch at
-   slot 32, card against CPU, with launches.
+   slot 32, card against CPU, with launches;
+16. the experiment scripts' compact strips (kernel rows 10-12) through their
+   port (``tools/bench_strip_compact.py``, ``tools/bench_strip64.py``) at
+   bench scale, f32 and bf16 strips (the bf16-state instantiation of the
+   strip kernels): against the dense aggregation and the plain versions,
+   with the two transposes around row 12's kernel timed;
+17. the edge-partitioned engine (``parallel/partition.py``) on phase 14's
+   500k-node graph: one partition into 4 parts (``dense_blocks``, halo,
+   ``agg_dtype='auto'``), 4 ranks on the one card (spawned processes, gloo;
+   whether an MPS server can run is probed before this process takes the
+   card), the ring kernel (row 9) bit for bit against its plain version at
+   the halo's and the full state's shape, the forward through both
+   transports against the single-device forward, and one Adam step through
+   ``collective`` against the single-device step, with launches per rank.
 
 Then the phase times, one JSON line listing the kernels, the card line
 again, and as the last line ``{"ok": true, "device": {...}}``.  The full log also goes to
@@ -201,12 +214,12 @@ def fused_inputs(model, batch):
     return state0, const.contiguous(), w_state.detach(), w_agg.detach(), op.to(dev), act
 
 
-def check_strip(op, label, timed, name="strip_matmul", d=16):
+def check_strip(op, label, timed, name="strip_matmul", d=16, round_state=False):
     """The strip kernel on ``op`` (a ``StripOperator``: slot-128 strips,
     compact slot-32/64 strips, or the mixed format) against its plain
     version, at ``d`` feature rows.  ``name`` is the forward kernel
     ``strip_matmul`` or its backward ``strip_matmul_t``; both move the same
-    bytes."""
+    bytes.  ``round_state``: the bf16-state instantiation (bf16 strips)."""
     import torch
     from gnnkeras_tpu_torch.ops import strip as S
 
@@ -217,13 +230,14 @@ def check_strip(op, label, timed, name="strip_matmul", d=16):
     n = (op.strip.shape[0] + (0 if op.blocks is None else op.blocks.shape[0])) * 128
     gen = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn((d, n), generator=gen, device=dev)
+    kw = {"round_state": True} if round_state else {}
     with torch.no_grad():
-        got = kernel(x, *operands)
-        want = plain(x, *operands)
+        got = kernel(x, *operands, **kw)
+        want = plain(x, *operands, **kw)
     torch.cuda.synchronize()
     # f32 sums of the same few terms in another order
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    res = {"phase": "kernel_check", "kernel": name, "batch": label,
+    res = {"phase": "kernel_check", "kernel": name + ("_bf16_state" if round_state else ""), "batch": label,
            "storage": str(op.strip.dtype).replace("torch.", ""), "slot": op.slot,
            "tiles": n // 128, "strip_tiles": int(op.strip.shape[0]),
            "block_tiles": 0 if op.blocks is None else int(op.blocks.shape[0]), "d": d,
@@ -233,13 +247,13 @@ def check_strip(op, label, timed, name="strip_matmul", d=16):
         nnz = sum(int(torch.count_nonzero(t)) for t in mats)
         n_bytes = sum(t.numel() * t.element_size() for t in tensors) + 2 * x.numel() * 4
         with torch.no_grad():
-            res["kernel_ms"] = graph_ms([lambda: kernel(x, *operands)])
+            res["kernel_ms"] = graph_ms([lambda: kernel(x, *operands, **kw)])
             clone = lambda o: o.clone() if isinstance(o, torch.Tensor) else o
             copies = [(x.clone(), *[clone(o) for o in operands]) for _ in range(cold_copies(n_bytes))]
-            res["kernel_cold_ms"] = graph_ms([lambda o=o: kernel(*o) for o in copies])
+            res["kernel_cold_ms"] = graph_ms([lambda o=o: kernel(*o, **kw) for o in copies])
             res["cold_copies"] = len(copies)
             del copies
-            res["plain_ms"] = graph_ms([lambda: plain(x, *operands)])
+            res["plain_ms"] = graph_ms([lambda: plain(x, *operands, **kw)])
             # the expanded dense f32 operator (transposed for the backward), a yardstick only
             full, scale = S._full_operator(*operands[:4], operands[4])
             dense = full.float() if scale is None else full.float() * scale[:, None, :]
@@ -1095,7 +1109,7 @@ def large_graph_section(card):
           "residual_blocks": 0 if bop.residual is None else int(bop.residual.blocks.shape[0]),
           "f32_bcsr_blocks": {k: int(v.blocks.shape[0]) for k, v in refs.items()},
           "quantised_blocks": {f"{k[0]}_{k[1]}": int(v.mask.shape[0]) for k, v in quants.items()}})
-    out = {}
+    out = {"graph": g64, "batch": b64}
     diag0 = bop.diags[bop.offsets.index(0)]
     out["banded_strip"] = check_strip(diag0, "band64_diagonal_0", timed=True, d=8)
     out["banded_strip_t"] = check_strip(diag0, "band64_diagonal_0", timed=True, name="strip_matmul_t", d=8)
@@ -1186,6 +1200,353 @@ def mixed_strip_section(card, model, model_cpu, bench, bench_u):
     return out
 
 
+def strip_scripts_section(card):
+    """Phase 16: kernel rows 10-12, the experiment scripts' compact-strip
+    products, through their port (``tools/bench_strip_compact.py``:
+    ``strip_aggregate``, ``blocked_aggregate``; ``tools/bench_strip64.py``:
+    ``strip64_aggregate``, ``packed_aggregate``) at bench scale (the slot-32
+    and slot-64 packings of the synthetic bench batch), f32 and bf16 strips:
+    each against the dense ``np.add.at`` aggregation (row 12 with its BCSR
+    residual) and the kernel against its plain version (``check_strip``,
+    with the bf16-state instantiation for bf16 strips).  Row 12 also times
+    the two transposes around the kernel.  Returns what the kernels line
+    reads."""
+    import torch
+    import torch.nn.functional as F
+    from gnnkeras_tpu_torch import GraphObject, kernels
+    from gnnkeras_tpu_torch.data.synthetic import BENCH_GRAPHS, random_molecules
+    from gnnkeras_tpu_torch.ops.bcsr import bcsr_aggregate
+    from gnnkeras_tpu_torch.ops.strip import StripOperator
+    from gnnkeras_tpu_torch.tools import bench_strip64 as t64
+    from gnnkeras_tpu_torch.tools import bench_strip_compact as tc
+
+    t0 = time.perf_counter()
+    strip32, n32, src32, dst32, w32, in32 = tc.build()
+    strip64, residual, n64, src64, dst64, w64, in64 = t64.build()
+    # molecules of 5-79 nodes: those of 65-79 own a tile, their cross-slot
+    # arcs go to the BCSR residual (the bench batch's ~30-node graphs leave none)
+    straddle = GraphObject.merge(random_molecules(BENCH_GRAPHS, seed=8, min_nodes=5, max_nodes=80), "g", "average")
+    s_strip, s_residual, s_n, s_src, s_dst, s_w, s_in = t64.build(merged=straddle)
+    assert residual is None and s_residual is not None
+    rng = np.random.default_rng(0)
+    state_t = rng.standard_normal((tc.D_SUB, n32)).astype(np.float32)
+    state_t[tc.D:] = 0.0
+    state = rng.standard_normal((n64, tc.D)).astype(np.float32)
+    ref32 = tc.dense_reference(state_t, src32, dst32, w32, in32)
+    ref64 = t64.dense_reference(state, src64, dst64, w64)
+    emit({"phase": "strip_scripts_build", "host_build_s": time.perf_counter() - t0,
+          "data": "synthetic bench_graph (Mutagenicity is not in the repository)",
+          "slot32": {"tiles": n32 // 128, "in_slot": float(in32.mean())},
+          "slot64": {"tiles": n64 // 128, "in_slot": float(in64.mean())},
+          "slot64_straddling": {"tiles": s_n // 128, "in_slot": float(s_in.mean()),
+                                "residual_blocks": int(s_residual.blocks.shape[0])}})
+    x32, x64 = torch.from_numpy(state_t).cuda(), torch.from_numpy(state).cuda()
+    s_state = rng.standard_normal((s_n, tc.D)).astype(np.float32)
+    s_ref = t64.dense_reference(s_state, s_src, s_dst, s_w)
+    s_x, s_res = torch.from_numpy(s_state).cuda(), s_residual.to("cuda")
+    k0 = 8  # the blocked scripts' check pads the tiles to a multiple of K = 8
+    t_pad = -(-strip32.shape[0] // k0) * k0
+    out = {"checks": {}, "launches": {}}
+    for storage in (torch.float32, torch.bfloat16):
+        st = str(storage).replace("torch.", "")
+        sp32, sp64 = torch.from_numpy(strip32).to(storage).cuda(), torch.from_numpy(strip64).to(storage).cuda()
+        sp32_k = F.pad(sp32, (0, 0, 0, 0, 0, t_pad - sp32.shape[0]))
+        x32_k = F.pad(x32, (0, (t_pad - sp32.shape[0]) * 128))
+        packed = F.pad(x64, (0, tc.D_SUB - tc.D)).reshape(-1, 128)
+        # the main path: the tools' four functions, each with its launches
+        # counted from 0 (the residual's BCSR product launches nothing)
+        suffix = "_bf16_state" if storage == torch.bfloat16 else ""
+        calls = {"strip_aggregate": ("strip_matmul", lambda: tc.strip_aggregate(x32, sp32)),
+                 "blocked_aggregate": ("strip_matmul", lambda: tc.blocked_aggregate(x32_k, sp32_k, k0)[:, :n32]),
+                 "strip64_aggregate": ("strip_matmul_t", lambda: t64.strip64_aggregate(x64, sp64, 1)),
+                 "packed_aggregate": ("strip_matmul_t", lambda: t64.packed_aggregate(
+                     packed, sp64, 1, tc.D_SUB).reshape(-1, tc.D_SUB)[:, :tc.D])}
+        got, out["launches"][st] = {}, {}
+        for fn_name, (kern, fn) in calls.items():
+            kernels.reset_launches()
+            got[fn_name] = fn()
+            torch.cuda.synchronize()
+            out["launches"][st][fn_name] = expect_launches(**{kern + suffix: 1})[kern + suffix]
+        got11, got10, got12, got12p = (got[k] for k in calls)
+        got12r = t64.strip64_aggregate(s_x, torch.from_numpy(s_strip).to(storage).cuda(), 1)
+        got12r = got12r + bcsr_aggregate(s_x, s_res)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got10, got11, rtol=0, atol=0)
+        torch.testing.assert_close(got12p, got12, rtol=0, atol=0)
+        # against the dense aggregation: f32 sums in another order; with bf16
+        # strips the state and the weights are rounded to bf16 (relative
+        # error 2^-9 each), so there within 2^-7 of the largest |aggregate|
+        errs = {"row11": float(np.abs(got11.cpu().numpy() - ref32).max()),
+                "row12": float(np.abs(got12.cpu().numpy() - ref64).max()),
+                "row12_straddling_plus_residual": float(np.abs(got12r.cpu().numpy() - s_ref).max())}
+        bound_abs = 1e-5 if storage == torch.float32 else 2.0**-7 * float(max(np.abs(r).max() for r in (ref32, ref64, s_ref)))
+        assert max(errs.values()) <= bound_abs, (st, errs, bound_abs)
+        rs = storage == torch.bfloat16
+        out["checks"][("row11", st)] = check_strip(StripOperator(strip=sp32, residual=None, scale=None, slot=32),
+                                                   "bench_slot32_script", timed=True, d=tc.D_SUB, round_state=rs)
+        op64 = StripOperator(strip=sp64, residual=None, scale=None, slot=64)
+        out["checks"][("row12", st)] = check_strip(op64, "bench_slot64_script", timed=True, name="strip_matmul_t",
+                                                   d=tc.D_SUB, round_state=rs)
+        x_t = F.pad(x64.T, (0, 0, 0, tc.D_SUB - tc.D)).contiguous()
+        y_t = torch.empty_like(x_t)
+        transposes = {"transpose_in_ms": graph_ms([lambda: F.pad(x64.T, (0, 0, 0, tc.D_SUB - tc.D)).contiguous()]),
+                      "transpose_out_ms": graph_ms([lambda: y_t[:tc.D].T.contiguous()]),
+                      "strip64_aggregate_ms": graph_ms([lambda: t64.strip64_aggregate(x64, sp64, 1)])}
+        emit({"phase": "strip_scripts", "strip": st, "max_abs_err_vs_dense": errs, "bound_vs_dense": bound_abs,
+              "launches": out["launches"][st], "row12": transposes, "card": card})
+        out["checks"][("row12", st)].update(transposes)
+        del x_t, y_t
+    return out
+
+
+PARTS = 4  # ranks of the partitioned engine, all on the one card
+
+
+def mps_probe():
+    """Can an MPS server serve this card?  Starts the MPS control daemon (pipe
+    and log directories under the checkout's ``gnnkeras_tpu_torch/_build/``),
+    runs one CUDA client in a subprocess through it, and stops the daemon.
+    Run before this process holds a CUDA context.  Without MPS the ranks of
+    phase 17 share the card time-sliced."""
+    base = os.path.join(REPO, "gnnkeras_tpu_torch", "_build", "mps")
+    pipe, logs = os.path.join(base, "pipe"), os.path.join(base, "log")
+    if len(pipe) > 90:  # the daemon's unix socket path must fit 108 bytes
+        return {"mps": False, "reason": "checkout path too long for the daemon's socket"}
+    os.makedirs(pipe, exist_ok=True)
+    os.makedirs(logs, exist_ok=True)
+    env = dict(os.environ, CUDA_MPS_PIPE_DIRECTORY=pipe, CUDA_MPS_LOG_DIRECTORY=logs)
+    try:
+        start = subprocess.run(["nvidia-cuda-mps-control", "-d"], env=env, capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as err:
+        return {"mps": False, "reason": f"nvidia-cuda-mps-control -d: {err!r}"}
+    if start.returncode != 0:
+        return {"mps": False, "reason": f"nvidia-cuda-mps-control -d exit {start.returncode}: {start.stderr[-300:]}"}
+    try:
+        client = subprocess.run([sys.executable, "-c", "import torch; torch.zeros(1, device='cuda'); "
+                                 "torch.cuda.synchronize(); print('ok')"], env=env, capture_output=True, text=True,
+                                timeout=120)
+    finally:
+        subprocess.run(["nvidia-cuda-mps-control"], input="quit\n", env=env, capture_output=True, text=True,
+                       timeout=60)
+    ok = client.returncode == 0 and client.stdout.strip().endswith("ok")
+    log = ""
+    if os.path.exists(os.path.join(logs, "control.log")):
+        with open(os.path.join(logs, "control.log")) as f:
+            log = " | ".join(ln.strip() for ln in f.read().splitlines() if "exception" in ln.lower())[-300:]
+    return {"mps": ok, "reason": "a CUDA client ran through the MPS server" if ok else
+            f"the daemon started, the client failed (exit {client.returncode}): {client.stderr.strip()[-200:]}; "
+            f"daemon log: {log}"}
+
+
+def _ring_times(x, reps=20):
+    """(kernel ms, plain ms, library ms) of one gather of ``x`` on this rank:
+    the ring kernel (CUDA events around ``reps`` calls, checked once after),
+    its plain version (point-to-point sends through host memory, host clock)
+    and gloo's ``all_gather`` of the same tensors through host memory
+    (``parallel/collectives.all_gather``, host clock), each after a barrier."""
+    import torch
+    import torch.distributed as dist
+    from gnnkeras_tpu_torch.ops import ring as R
+    from gnnkeras_tpu_torch.parallel.collectives import all_gather
+
+    dist.barrier()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        R.ring_all_gather(x, check=False)
+    b.record()
+    b.synchronize()
+    R.ring_error()
+    kernel = a.elapsed_time(b) / reps
+
+    def host_ms(fn, calls=5):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / calls
+
+    return kernel, host_ms(lambda: R._ring_all_gather_plain(x)), host_ms(lambda: all_gather(x))
+
+
+def _partition_rank(rank, world, shard, halo_rows):
+    """Phase 17 on one rank (a spawned process on the card): the ring kernel
+    against its plain version at the halo's and the full state's shape, the
+    large-graph model's forward through both transports and one Adam step
+    through ``collective``, each with its launches counted from 0 and host
+    times.  Returns NumPy results for the parent to compare."""
+    import torch
+    from gnnkeras_tpu_torch import kernels
+    from gnnkeras_tpu_torch.data.synthetic import large_graph_gnn
+    from gnnkeras_tpu_torch.ops import ring as R
+    from gnnkeras_tpu_torch.parallel.mesh import rank_device
+    from gnnkeras_tpu_torch.parallel.partition import PartitionedGNN
+
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    shard = shard.to(dev)
+    torch.cuda.synchronize()
+    res = {"rank": rank, "device": str(dev), "to_device_s": time.perf_counter() - t0, "ring": {}}
+    size = int(shard.node_mask.sum())
+
+    for label, rows in (("halo", halo_rows), ("full_state", shard.nodes_per_part)):
+        x = torch.randn((rows, 8), generator=torch.Generator(device=dev).manual_seed(100 + rank), device=dev)
+        kernels.reset_launches()
+        got = R.ring_all_gather(x)
+        assert kernels.LAUNCHES["ring_all_gather"] == 1
+        want = R._ring_all_gather_plain(x)
+        assert torch.equal(got, want), label  # a copy: bit for bit
+        ms, plain_ms, library_ms = _ring_times(x)
+        # bytes on the card for the whole group's gather: every rank's block
+        # read once, every rank's output (all P blocks) written once
+        n_bytes = world * (1 + world) * x.numel() * x.element_size()
+        res["ring"][label] = {"rows": rows, "d": 8, "max_abs_diff": float((got - want).abs().max()), "kernel_ms": ms,
+                              "plain_ms": plain_ms, "library_ms": library_ms, "bytes": n_bytes}
+
+    model = large_graph_gnn(dev, seed=0)
+    for transport in ("collective", "pallas_ring"):
+        engine = PartitionedGNN(model, transport=transport)
+        kernels.reset_launches()
+        k, state, out, _ = engine.forward(shard)
+        torch.cuda.synchronize()
+        launches = {name: n for name, n in kernels.LAUNCHES.items() if n}
+        ts = []
+        for _ in range(5):
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            engine.forward(shard)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        res[transport] = {"k": float(k), "state": state[:size].cpu().numpy(), "out": out[:size].cpu().numpy(),
+                          "launches": launches, "forward_ms": float(np.median(ts)), "forward_ms_all": ts}
+
+    model.compile(optimizer="adam:0.01", loss="mse")
+    engine = PartitionedGNN(model)
+    kernels.reset_launches()
+    logs = engine.train_step(shard)
+    torch.cuda.synchronize()
+    res["step"] = {"loss": float(logs["loss"]), "k": float(logs["k"]),
+                   "launches": {name: n for name, n in kernels.LAUNCHES.items() if n},
+                   "params": {n: p.detach().cpu().numpy() for n, p in model.named_parameters()},
+                   "grads": {n: p.grad.cpu().numpy() for n, p in model.named_parameters()},
+                   "buffers": {n: b.cpu().numpy() for n, b in model.named_buffers()}}
+    ts = []
+    for _ in range(5):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.train_step(shard)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    res["step"]["train_step_ms"], res["step"]["train_step_ms_all"] = float(np.median(ts)), ts
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return res
+
+
+def partitioned_section(card, g, batch, mps):
+    """Phase 17: the edge-partitioned engine on the 500k-node banded graph of
+    phase 14 (``g``; ``batch`` its single-device batch on the card, the
+    banded int8 route of ``agg_dtype='auto'``).  One partition into 4 parts
+    (``dense_blocks=True``, halo on, ``agg_dtype='auto'``: each part's local
+    operator the banded int8 decomposition, kernel rows 1/1b) is built once
+    and driven by 4 ranks sharing the card (``_partition_rank``): the ring
+    kernel bit for bit against its plain version, the forward through both
+    transports against the single-device forward, one Adam step through
+    ``collective`` against the single-device step.  Returns what the kernels
+    line reads."""
+    import torch
+    from gnnkeras_tpu_torch.data.synthetic import large_graph_gnn
+    from gnnkeras_tpu_torch.ops.banded import BandedOperator
+    from gnnkeras_tpu_torch.parallel.launch import spawn
+    from gnnkeras_tpu_torch.parallel.partition import partition_graph
+    from gnnkeras_tpu_torch.training.trainer import train_step
+
+    t0 = time.perf_counter()
+    pg = partition_graph(g, PARTS, dense_blocks=True, agg_dtype="auto")
+    build_s = time.perf_counter() - t0
+    assert pg.publish_local is not None and all(isinstance(op, BandedOperator) for op in pg.local_ops)
+    halo_rows = int(pg.publish_local.shape[1])
+    emit({"phase": "partition_build", "host_build_s": build_s, "parts": PARTS, "nodes_per_part": pg.nodes_per_part,
+          "halo_rows": halo_rows, "published_rows": [int(m.sum()) for m in pg.publish_mask],
+          "offsets": list(pg.local_ops[0].offsets),
+          "halo_blocks": [int(op.blocks.shape[0]) for op in pg.halo_ops]})
+
+    # the single-device reference on the card: forward, then one Adam step
+    model = large_graph_gnn("cuda", seed=0)
+    k_ref, state_ref, out_ref, mask_ref, _ = model.forward(batch, training=False)
+    n = int(g.nodes.shape[0])
+    state_ref, out_ref = state_ref[:n].cpu().numpy(), out_ref[mask_ref].cpu().numpy()
+    model.compile(optimizer="adam:0.01", loss="mse")
+    logs_ref, _ = train_step(model, batch, model.next_rng())
+    loss_ref = float(logs_ref["loss_sum"] / logs_ref["count"])
+    params_ref = {nm: p.detach().cpu().numpy() for nm, p in model.named_parameters()}
+    grads_ref = {nm: p.grad.cpu().numpy() for nm, p in model.named_parameters()}
+    buffers_ref = {nm: b.cpu().numpy() for nm, b in model.named_buffers()}
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn(_partition_rank, PARTS, [(pg.shard(r, "cpu"), halo_rows) for r in range(PARTS)], threads=2,
+                  timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    out = {"ring": ranks[0]["ring"], "ranks": ranks}
+    for res in out["ring"].values():
+        res["bound_ms"], res["bound_by"] = bound(res["bytes"], 0)
+    for transport in ("collective", "pallas_ring"):
+        assert all(r[transport]["k"] == k_ref == 5 for r in ranks), [r[transport]["k"] for r in ranks]
+        state = np.concatenate([r[transport]["state"] for r in ranks])
+        o = np.concatenate([r[transport]["out"] for r in ranks])
+        # the same f32 weights, a node's ~8 neighbour terms summed in another
+        # order (local diagonals, then the halo blocks), over 5 iterations
+        np.testing.assert_allclose(state, state_ref, rtol=1e-5, atol=1e-5, err_msg=transport)
+        np.testing.assert_allclose(o, out_ref, rtol=1e-5, atol=1e-6, err_msg=transport)
+        out[transport] = {"state_max_abs_diff": float(np.abs(state - state_ref).max()),
+                          "out_max_abs_diff": float(np.abs(o - out_ref).max())}
+    for r in ranks:
+        want = {"strip_matmul": 12}
+        assert r["collective"]["launches"] == want, r["collective"]["launches"]
+        assert r["pallas_ring"]["launches"] == {**want, "ring_all_gather": 4}, r["pallas_ring"]["launches"]
+        assert r["step"]["launches"] == {"strip_matmul": 12, "strip_matmul_t": 12}, r["step"]["launches"]
+    # one Adam step: the tolerances of phase 14 (a bias gradient sums 500,000
+    # terms of both signs: entries below 1e-4 of the leaf's largest |g| are
+    # held to that share of it; parameters where Adam's step is not steep)
+    excluded, worst = 0, {}
+    for r in ranks:
+        step = r["step"]
+        assert step["k"] == 5.0
+        np.testing.assert_allclose(step["loss"], loss_ref, rtol=1e-5)
+        for nm, grad in step["grads"].items():
+            g_ref = grads_ref[nm]
+            gmax = float(np.abs(g_ref).max())
+            np.testing.assert_allclose(grad, g_ref, rtol=1e-4, atol=1e-4 * gmax, err_msg=nm)
+            worst[nm] = max(worst.get(nm, 0.0), float(np.abs(grad - g_ref).max() / max(gmax, 1e-30)))
+            g_abs = np.abs(g_ref)
+            g_err = 1e-4 * g_abs + 1e-4 * gmax
+            live = 0.01 * 1e-7 * g_err / (np.maximum(g_abs - g_err, 0.0) + 1e-7) ** 2 < 1e-6
+            excluded += int((~live).sum())
+            np.testing.assert_allclose(step["params"][nm][live], params_ref[nm][live], rtol=1e-5, atol=1e-6,
+                                       err_msg=nm)
+        for nm, b in step["buffers"].items():
+            np.testing.assert_allclose(b, buffers_ref[nm], rtol=1e-5, atol=1e-6, err_msg=nm)
+    emit({"phase": "partitioned", "parts": PARTS, "ranks_s": ranks_s,
+          "ranks_share_the_card": "time-sliced (no MPS server running)", "mps_probe": mps,
+          "ring": {r["rank"]: r["ring"] for r in ranks},
+          "forward_ms": {t: [r[t]["forward_ms"] for r in ranks] for t in ("collective", "pallas_ring")},
+          "train_step_ms": [r["step"]["train_step_ms"] for r in ranks],
+          "to_device_s": [r["to_device_s"] for r in ranks], "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+          "launches": {"forward_collective": ranks[0]["collective"]["launches"],
+                       "forward_pallas_ring": ranks[0]["pallas_ring"]["launches"],
+                       "train_step": ranks[0]["step"]["launches"]},
+          "vs_single_device": {t: out[t] for t in ("collective", "pallas_ring")},
+          "step_loss": ranks[0]["step"]["loss"], "step_loss_single_device": loss_ref,
+          "grad_max_rel_diff": worst, "adam_entries_excluded": excluded, "card": card})
+    return out
+
+
 def main():
     import torch
 
@@ -1200,6 +1561,10 @@ def main():
 
     card = card_line()
     print(card, flush=True)
+    t0 = time.perf_counter()
+    mps = mps_probe()  # before this process holds a context on the card
+    mps["probe_s"] = time.perf_counter() - t0
+    emit({"phase": "mps_probe", **mps})
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
     times = {}
@@ -1391,6 +1756,14 @@ def main():
     t_phase = time.perf_counter()
     mixed = mixed_strip_section(card, model, model_cpu, bench, bench_u)
     times["mixed_strip"] = time.perf_counter() - t_phase
+
+    # -- 16. the experiment scripts' strips, 17. the partitioned engine ---------
+    t_phase = time.perf_counter()
+    scripts = strip_scripts_section(card)
+    times["strip_scripts"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    parted = partitioned_section(card, large["graph"], large["batch"], mps)
+    times["partitioned"] = time.perf_counter() - t_phase
     emit({"phase": "timing", "phase_s": times, "total_s": time.perf_counter() - t_start})
 
     # -- kernels, card, verdict ----------------------------------------------
@@ -1457,6 +1830,22 @@ def main():
         *[entry(f"strip_matmul_t_mixed_slot{slot}_{st}", strip_src, "gnnkeras_tpu/ops/strip.py:379",
                 mixed["step"][(slot, st)], mixed["checks"][(slot, st, "strip_matmul_t")])
           for slot in (32, 64) for st in ("int8", "bfloat16")],
+        # row 9: the ring all-gather of the partitioned engine (rank 0 of 4 on
+        # the card), at the halo's shape, the one its forward exchanges
+        entry("ring_all_gather", "gnnkeras_tpu_torch/csrc/ring.cu", "gnnkeras_tpu/ops/ring.py:25",
+              parted["ranks"][0]["pallas_ring"]["launches"]["ring_all_gather"], parted["ring"]["halo"]),
+        entry("ring_all_gather_full_state", "gnnkeras_tpu_torch/csrc/ring.cu", "gnnkeras_tpu/ops/ring.py:25",
+              parted["ranks"][0]["pallas_ring"]["launches"]["ring_all_gather"], parted["ring"]["full_state"]),
+        # rows 10-12: the experiment scripts' strips through their tools (the
+        # strip kernels; bf16 strips through the bf16-state instantiation)
+        *[entry(f"{fn_name}_{st}", strip_src, replaces, scripts["launches"][st][fn_name],
+                scripts["checks"][(key, st)])
+          for st in ("float32", "bfloat16")
+          for fn_name, key, replaces in (
+              ("strip_aggregate", "row11", "scripts/bench_pallas_compact.py:38"),
+              ("blocked_aggregate", "row11", "scripts/bench_strip_blocked.py:28"),
+              ("strip64_aggregate", "row12", "scripts/bench_strip64.py:75"),
+              ("packed_aggregate", "row12", "scripts/bench_strip64.py:187"))],
     ]})
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl"), "w") as f:

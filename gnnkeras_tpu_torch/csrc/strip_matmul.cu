@@ -55,6 +55,17 @@
 //
 // No tensor cores in either: a later change can move the products onto mma.
 //
+// bf16-state variant (mask_kind 3, operator type Bf16State): bf16 weights
+// whose product first rounds the state (forward) or the cotangent (backward)
+// to bf16 (__float2bfloat16_rn) as it is staged, then multiplies in f32.
+// That is what the experiment scripts' compact-strip kernels compute
+// (scripts/bench_pallas_compact.py _strip_kernel, scripts/bench_strip_blocked.py
+// _blocked_kernel, scripts/bench_strip64.py _kernel and _packed_kernel:
+// x.astype(bf16) @ strip), where the model's path lifts the operator to f32
+// and keeps the state.  It is a separate operator type, so the int8, f32 and
+// bf16 instantiations the model runs are compiled exactly as before; it is
+// built for slot-pure operators only (the scripts have no block region).
+//
 // Entries: gnn_strip_matmul and gnn_strip_matmul_t, plain C functions bound
 // with ctypes.  Each launches on the caller's stream and returns
 // cudaGetLastError().
@@ -63,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int TILE = 128;
@@ -70,6 +83,24 @@ constexpr int TILE = 128;
 __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// bf16 weights of the bf16-state variant: the same two bytes as
+// __nv_bfloat16, a type of its own so that it instantiates kernels of its own
+struct Bf16State {
+  __nv_bfloat16 w;
+};
+__device__ __forceinline__ float to_f32(Bf16State v) { return __bfloat162float(v.w); }
+
+// The state (forward) or cotangent (backward) value as a tile stages it:
+// unchanged, or rounded to bf16 for the bf16-state variant.
+template <typename MaskT>
+__device__ __forceinline__ float staged(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float staged<Bf16State>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // One tile of the forward: ROWS operator rows (the slot of a compact strip,
 // or 128 for a full block) from ``rows``, each multiplying the state row of
@@ -109,7 +140,7 @@ __global__ void __launch_bounds__(TILE) strip_matmul_kernel(
   const long col = static_cast<long>(t) * TILE + j;
 
 #pragma unroll
-  for (int f = 0; f < DC; ++f) xs[f * TILE + j] = x[(f0 + f) * n + col];
+  for (int f = 0; f < DC; ++f) xs[f * TILE + j] = staged<MaskT>(x[(f0 + f) * n + col]);
   __syncthreads();
 
   if (!MIXED || t < ts) {
@@ -142,6 +173,9 @@ struct Word<__nv_bfloat16> {
     return __uint_as_float(((w >> (16 * e)) & 0xffffu) << 16);
   }
 };
+
+template <>
+struct Word<Bf16State> : Word<__nv_bfloat16> {};
 
 template <>
 struct Word<float> {
@@ -180,7 +214,7 @@ __device__ __forceinline__ void backward_tile(uint32_t* ms, float* cs, const flo
 #pragma unroll
   for (int f = 0; f < DC; ++f) {
     const float v = ct[(f0 + f) * n + col];
-    cs[f * TILE + tid] = SCALED ? v * s : v;
+    cs[f * TILE + tid] = staged<MaskT>(SCALED ? v * s : v);
   }
   __syncthreads();
 
@@ -266,9 +300,13 @@ template <int DC, int SLOT, typename MaskT, bool SCALED>
 cudaError_t launch_typed(const float* x, const void* strip, const float* scale, int ts, const void* blocks,
                          const float* blocks_scale, float* out, int d, int n_tiles, bool transposed,
                          cudaStream_t stream) {
-  if (ts < n_tiles)
-    return launch_kernel<DC, SLOT, MaskT, SCALED, true>(x, strip, scale, ts, blocks, blocks_scale, out, d, n_tiles,
-                                                        transposed, stream);
+  if constexpr (std::is_same<MaskT, Bf16State>::value) {
+    if (ts < n_tiles) return cudaErrorInvalidValue;  // built for slot-pure operators only
+  } else {
+    if (ts < n_tiles)
+      return launch_kernel<DC, SLOT, MaskT, SCALED, true>(x, strip, scale, ts, blocks, blocks_scale, out, d, n_tiles,
+                                                          transposed, stream);
+  }
   return launch_kernel<DC, SLOT, MaskT, SCALED, false>(x, strip, scale, ts, blocks, blocks_scale, out, d, n_tiles,
                                                        transposed, stream);
 }
@@ -289,6 +327,9 @@ cudaError_t launch(const void* x, const void* strip, const void* scale, int ts, 
     case 2:  // bf16 weights, no scale
       return launch_typed<DC, SLOT, __nv_bfloat16, false>(xf, strip, sf, ts, blocks, bsf, of, d, n_tiles, transposed,
                                                           stream);
+    case 3:  // bf16 weights, state rounded to bf16 (the experiment scripts' product)
+      return launch_typed<DC, SLOT, Bf16State, false>(xf, strip, sf, ts, blocks, bsf, of, d, n_tiles, transposed,
+                                                      stream);
     default:
       return cudaErrorInvalidValue;
   }

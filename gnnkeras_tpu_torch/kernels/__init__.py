@@ -41,6 +41,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_S = ctypes.c_size_t
 # source name -> {C entry point: argtypes}
 _ENTRIES = {
     "strip_matmul": {
@@ -57,12 +58,20 @@ _ENTRIES = {
         "gnn_qbcsr_matmul": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "gnn_qbcsr_matmul_t": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
+    "ring": {
+        "gnn_ring_alloc": [_S, ctypes.POINTER(_P), ctypes.c_char_p],
+        "gnn_ring_open": [ctypes.c_char_p, ctypes.POINTER(_P)],
+        "gnn_ring_close": [_P],
+        "gnn_ring_free": [_P],
+        "gnn_ring_all_gather": [_P, _P, _P, _P, _P, _I, _I, _S, _S, ctypes.c_ulonglong, _P, _P],
+    },
 }
 SOURCES = tuple(_ENTRIES)
 
 LAUNCHES: Dict[str, int] = {
-    "strip_matmul": 0, "strip_matmul_t": 0, "fused_unfold_t": 0, "fused_unfold": 0, "incidence_select": 0,
-    "incidence_scatter": 0, "qbcsr_matmul": 0, "qbcsr_matmul_t": 0,
+    "strip_matmul": 0, "strip_matmul_t": 0, "strip_matmul_bf16_state": 0, "strip_matmul_t_bf16_state": 0,
+    "fused_unfold_t": 0, "fused_unfold": 0, "incidence_select": 0,
+    "incidence_scatter": 0, "qbcsr_matmul": 0, "qbcsr_matmul_t": 0, "ring_all_gather": 0,
 }
 
 _lock = threading.Lock()

@@ -81,11 +81,6 @@ def unconverged_flag(state, state_old, node_mask, threshold: float, feature_axis
     return torch.any(changed & node_mask)
 
 
-def unconverged(state, state_old, node_mask, threshold: float, feature_axis: int = 1) -> bool:
-    """``unconverged_flag`` read on the host."""
-    return bool(unconverged_flag(state, state_old, node_mask, threshold, feature_axis))
-
-
 def aggregate_t(state_t: torch.Tensor, batch: GraphBatch, sd: int) -> torch.Tensor:
     """Feature-major ``Adjᵀ·state`` through the strip operator when present,
     else the batch's block operator (banded decomposition, quantised BCSR or
@@ -108,14 +103,19 @@ def aggregate_t(state_t: torch.Tensor, batch: GraphBatch, sd: int) -> torch.Tens
 
 
 def run_unfold_loops(model, batch: GraphBatch, state0, state_old0, bn0, transition, training: bool,
-                     peel_agg=None, feature_axis: int = 1, fixed_length: bool = False):
+                     peel_agg=None, feature_axis: int = 1, fixed_length: bool = False,
+                     predicate=unconverged_flag):
     """The one unfolding loop.  ``transition(state, bn_state, aggregated=None)``
     is one step returning (new state, new moving statistics); ``peel_agg``
     (``Adjᵀ·labels``) replaces the aggregation of iteration 0.  With
     ``model.per_iteration_bn`` the statistics in ``bn0`` are (K, f) stacks
-    and step k takes slice k.  Returns (k, state, moving statistics): ``k``
-    an int in inference, a 0-dim float tensor on the device in training and
-    with ``fixed_length``."""
+    and step k takes slice k.  ``predicate`` is the convergence test
+    (``unconverged_flag``'s signature, a 0-dim bool tensor); the partitioned
+    engine passes one that takes the maximum over its ranks, so every rank
+    runs the same trip count (``parallel/partition.py``).  ``batch`` needs
+    only ``node_mask``.  Returns (k, state, moving statistics): ``k`` an int
+    in inference, a 0-dim float tensor on the device in training and with
+    ``fixed_length``."""
     K = model.max_iteration
     threshold = model.state_threshold
     mask = batch.node_mask
@@ -126,25 +126,25 @@ def run_unfold_loops(model, batch: GraphBatch, state0, state_old0, bn0, transiti
 
     if not training and not fixed_length:
         state, bn = state0, bn0
-        changed = unconverged(state0, state_old0, mask, threshold, feature_axis)
+        changed = bool(predicate(state0, state_old0, mask, threshold, feature_axis))
         k = 0
         while changed and k < K:
             new_state, new_bn = transition(state, take(min(k, K - 1)) if per_iter else bn,
                                            peel_agg if k == 0 else None)
             if not per_iter:
                 bn = new_bn
-            changed = unconverged(new_state, state, mask, threshold, feature_axis)
+            changed = bool(predicate(new_state, state, mask, threshold, feature_axis))
             state, k = new_state, k + 1
         return k, state, bn
 
-    running = unconverged_flag(state0, state_old0, mask, threshold, feature_axis)
+    running = predicate(state0, state_old0, mask, threshold, feature_axis)
     k = torch.zeros((), dtype=state0.dtype, device=state0.device)
     state, bn = state0, bn0
     per_step = []
     for step in range(K):
         bn_in = take(step) if per_iter else bn
         new_state, new_bn = transition(state, bn_in, peel_agg if step == 0 else None)
-        changed = unconverged_flag(new_state, state, mask, threshold, feature_axis)
+        changed = predicate(new_state, state, mask, threshold, feature_axis)
         state = torch.where(running, new_state, state)
         kept = {key: torch.where(running, new_bn[key], bn_in[key]) for key in bn_in}
         if per_iter:

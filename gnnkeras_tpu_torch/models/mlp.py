@@ -148,19 +148,29 @@ _BN_EPS = 1e-3
 _ALPHA_P = -1.7580993408473766
 
 
-def _masked_moments(x: torch.Tensor, mask: Optional[torch.Tensor], feature_major: bool):
+def _masked_moments(x: torch.Tensor, mask: Optional[torch.Tensor], feature_major: bool, group=None):
     """Per-feature mean and biased variance over the rows (row-major) or
-    lanes (feature-major) that ``mask`` selects, count = max(Σmask, 1)."""
+    lanes (feature-major) that ``mask`` selects, count = max(Σmask, 1).
+    With a process ``group`` the sums and the count span the group's ranks
+    (rows sharded over ranks see the statistics of the whole batch, as the
+    JAX package's ``axis_name`` gives them)."""
     axis = 1 if feature_major else 0
     if mask is None:
         m = torch.ones((1, x.shape[1]) if feature_major else (x.shape[0], 1), dtype=x.dtype, device=x.device)
     else:
         m = mask.to(x.dtype)[None, :] if feature_major else mask.to(x.dtype)[:, None]
-    count = torch.clamp_min(torch.sum(m), 1.0)
-    mean = torch.sum(x * m, dim=axis) / count
+    total, c = torch.sum(x * m, dim=axis), torch.sum(m)
+    if group is not None:
+        from gnnkeras_tpu_torch.parallel.collectives import psum
+
+        total, c = psum(total, group), psum(c, group)
+    count = torch.clamp_min(c, 1.0)
+    mean = total / count
     centred = x - (mean[:, None] if feature_major else mean)
-    var = torch.sum(torch.square(centred) * m, dim=axis) / count
-    return mean, var
+    var = torch.sum(torch.square(centred) * m, dim=axis)
+    if group is not None:
+        var = psum(var, group)
+    return mean, var / count
 
 
 def _dropout_keep(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -323,12 +333,14 @@ class MLP(nn.Module):
         mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         bn_state: Optional[Dict[str, torch.Tensor]] = None,
+        group=None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The layer program on (rows, features), or (features, rows) when
         ``feature_major``.  ``bn_state`` (default: the buffers) holds the
         moving statistics that eval mode normalises with and training mode
-        updates.  Returns (output, new moving statistics); the buffers are
-        not written."""
+        updates; with a process ``group`` the training moments span its
+        ranks.  Returns (output, new moving statistics); the buffers are not
+        written."""
         stats = self.bn_state() if bn_state is None else bn_state
         new_stats: Dict[str, torch.Tensor] = {}
         for i, (layer, mod) in enumerate(zip(self.program, self.layers)):
@@ -342,7 +354,7 @@ class MLP(nn.Module):
             elif layer[0] == "batch_norm":
                 mean_key, var_key = f"layers.{i}.moving_mean", f"layers.{i}.moving_var"
                 if training:
-                    mean, var = _masked_moments(x, mask, feature_major)
+                    mean, var = _masked_moments(x, mask, feature_major, group)
                     new_stats[mean_key] = _BN_MOMENTUM * stats[mean_key] + (1.0 - _BN_MOMENTUM) * mean.detach()
                     new_stats[var_key] = _BN_MOMENTUM * stats[var_key] + (1.0 - _BN_MOMENTUM) * var.detach()
                 else:

@@ -28,6 +28,13 @@ is differentiable through a ``torch.autograd.Function`` whose backward is
 ``strip_matmul_t``; its forward is the custom operator
 ``gnnkeras_tpu_torch::strip_matmul``, which an exported program calls.  The
 BCSR residual stays plain torch ops, so autograd takes its transpose.
+
+``round_state=True`` (bf16 slot-pure strips only; the experiment tools in
+``tools/bench_strip_compact.py`` and ``tools/bench_strip64.py`` pass it, the
+model's path never does) selects the kernels' bf16-state instantiation: the
+state or cotangent is rounded to bf16 before the product, as the JAX
+package's experiment scripts compute it, where the model's kernel lifts the
+operator to f32 and keeps the state.  It is not differentiable.
 """
 
 from __future__ import annotations
@@ -227,10 +234,12 @@ def _full_operator(strip, scale, blocks, blocks_scale, slot):
 
 def _strip_matmul_plain(state_t: torch.Tensor, strip: torch.Tensor, scale: Optional[torch.Tensor],
                         blocks: Optional[torch.Tensor] = None, blocks_scale: Optional[torch.Tensor] = None,
-                        slot: int = TILE) -> torch.Tensor:
+                        slot: int = TILE, round_state: bool = False) -> torch.Tensor:
     """Per-tile product of the (d, 128) state tiles with the upcast blocks
     (compact strips expanded), then the per-column scale: the kernel's own
-    decomposition."""
+    decomposition.  ``round_state`` rounds the state to bf16 first."""
+    if round_state:
+        state_t = state_t.to(torch.bfloat16).to(state_t.dtype)
     op, sc = _full_operator(strip, scale, blocks, blocks_scale, slot)
     d, n = state_t.shape
     t = op.shape[0]
@@ -243,9 +252,12 @@ def _strip_matmul_plain(state_t: torch.Tensor, strip: torch.Tensor, scale: Optio
 
 def _strip_matmul_t_plain(ct_t: torch.Tensor, strip: torch.Tensor, scale: Optional[torch.Tensor],
                           blocks: Optional[torch.Tensor] = None, blocks_scale: Optional[torch.Tensor] = None,
-                          slot: int = TILE) -> torch.Tensor:
+                          slot: int = TILE, round_state: bool = False) -> torch.Tensor:
     """The backward's decomposition: per tile, the cotangent scaled along
-    the contraction axis, times the transposed upcast block."""
+    the contraction axis, times the transposed upcast block.
+    ``round_state`` rounds the cotangent to bf16 first."""
+    if round_state:
+        ct_t = ct_t.to(torch.bfloat16).to(ct_t.dtype)
     op, sc = _full_operator(strip, scale, blocks, blocks_scale, slot)
     d, n = ct_t.shape
     t = op.shape[0]
@@ -256,7 +268,11 @@ def _strip_matmul_t_plain(ct_t: torch.Tensor, strip: torch.Tensor, scale: Option
     return out.permute(1, 0, 2).reshape(d, n)
 
 
-def _check_operands(name: str, x: torch.Tensor, strip, scale, blocks, blocks_scale, slot: int) -> None:
+def _check_operands(name: str, x: torch.Tensor, strip, scale, blocks, blocks_scale, slot: int,
+                    round_state: bool = False) -> None:
+    if round_state and (strip.dtype != torch.bfloat16 or blocks is not None):
+        raise ValueError(f"{name}: round_state takes bf16 slot-pure strips, got {strip.dtype} "
+                         f"{'with' if blocks is not None else 'without'} blocks")
     if slot not in SLOTS:
         raise ValueError(f"{name}: slot {slot} must be one of {SLOTS}")
     if x.dim() != 2 or strip.dim() != 3 or tuple(strip.shape[1:]) != (slot, TILE):
@@ -312,7 +328,7 @@ class _StripMatmul(torch.autograd.Function):
 
 def strip_matmul(state_t: torch.Tensor, strip: torch.Tensor, scale: Optional[torch.Tensor] = None,
                  blocks: Optional[torch.Tensor] = None, blocks_scale: Optional[torch.Tensor] = None,
-                 slot: int = TILE) -> torch.Tensor:
+                 slot: int = TILE, round_state: bool = False) -> torch.Tensor:
     """``out[:, tile t] = (state_t[:, tile t] @ M[t]) * scale[t]``,
     differentiable in ``state_t``.
 
@@ -321,30 +337,35 @@ def strip_matmul(state_t: torch.Tensor, strip: torch.Tensor, scale: Optional[tor
     (T − Ts, 128, 128) full blocks for the rest (None when Ts = T); int8
     storage with ``scale`` (Ts, 128) and ``blocks_scale`` (T − Ts, 128) f32,
     or f32/bf16 weights with no scales.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel."""
-    _check_operands("strip_matmul", state_t, strip, scale, blocks, blocks_scale, slot)
+    version; a CUDA tensor launches the kernel.  ``round_state``: the
+    bf16-state product of the experiment tools (module docstring)."""
+    _check_operands("strip_matmul", state_t, strip, scale, blocks, blocks_scale, slot, round_state)
+    if round_state:
+        return _launch_or_plain("strip_matmul", state_t, strip, scale, blocks, blocks_scale, slot, True)
     return _StripMatmul.apply(state_t, strip, scale, blocks, blocks_scale, slot)
 
 
 def strip_matmul_t(ct_t: torch.Tensor, strip: torch.Tensor, scale: Optional[torch.Tensor] = None,
                    blocks: Optional[torch.Tensor] = None, blocks_scale: Optional[torch.Tensor] = None,
-                   slot: int = TILE) -> torch.Tensor:
+                   slot: int = TILE, round_state: bool = False) -> torch.Tensor:
     """The backward of ``strip_matmul``:
     ``out[:, tile t] = (ct_t[:, tile t] · diag(scale[t])) @ M[t]ᵀ``.
     Same operands and devices as ``strip_matmul``."""
-    _check_operands("strip_matmul_t", ct_t, strip, scale, blocks, blocks_scale, slot)
-    return _launch_or_plain("strip_matmul_t", ct_t, strip, scale, blocks, blocks_scale, slot)
+    _check_operands("strip_matmul_t", ct_t, strip, scale, blocks, blocks_scale, slot, round_state)
+    return _launch_or_plain("strip_matmul_t", ct_t, strip, scale, blocks, blocks_scale, slot, round_state)
 
 
 _MASK_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+_BF16_STATE = 3  # bf16 weights, state rounded to bf16 (``round_state``)
 _PLAIN = {"strip_matmul": _strip_matmul_plain, "strip_matmul_t": _strip_matmul_t_plain}
 
 
-def _launch_or_plain(name: str, x, strip, scale, blocks, blocks_scale, slot: int):
+def _launch_or_plain(name: str, x, strip, scale, blocks, blocks_scale, slot: int, round_state: bool = False):
     """The plain version for a CPU tensor; for a CUDA tensor the kernel's
-    launch, counted in ``kernels.LAUNCHES[name]``, or an error."""
+    launch, counted in ``kernels.LAUNCHES[name]`` (the bf16-state
+    instantiation in ``LAUNCHES[name + "_bf16_state"]``), or an error."""
     if x.device.type == "cpu":
-        return _PLAIN[name](x, strip, scale, blocks, blocks_scale, slot)
+        return _PLAIN[name](x, strip, scale, blocks, blocks_scale, slot, round_state)
     from gnnkeras_tpu_torch import kernels
 
     if x.device.type != "cuda":
@@ -369,10 +390,11 @@ def _launch_or_plain(name: str, x, strip, scale, blocks, blocks_scale, slot: int
     with torch.cuda.device(x.device):
         err = fn(
             x.data_ptr(), strip.data_ptr(), ptr(scale), strip.shape[0], slot, ptr(blocks), ptr(blocks_scale),
-            _MASK_KIND[strip.dtype], out.data_ptr(), d, x.shape[1] // TILE, kernels.stream_of(x),
+            _BF16_STATE if round_state else _MASK_KIND[strip.dtype], out.data_ptr(), d, x.shape[1] // TILE,
+            kernels.stream_of(x),
         )
     kernels.check(err, name)
-    kernels.LAUNCHES[name] += 1
+    kernels.LAUNCHES[name + "_bf16_state" if round_state else name] += 1
     return out
 
 

@@ -88,3 +88,41 @@ def test_serving_entry_points_raise_without_card(no_card, tmp_path):
         loaded._module("cuda")
     out, _ = loaded.call(batch)
     assert np.isfinite(out.numpy()).all()
+
+
+_RANK_MODULES = ("gnnkeras_tpu_torch.parallel.mesh", "gnnkeras_tpu_torch.parallel.collectives",
+                 "gnnkeras_tpu_torch.parallel.partition", "gnnkeras_tpu_torch.ops.ring",
+                 "gnnkeras_tpu_torch.tools.partitioned_large_graph", "gnnkeras_tpu_torch.tools.bench_strip_compact",
+                 "gnnkeras_tpu_torch.tools.bench_strip64")
+
+
+def _modules_of_a_rank(rank: int, world: int) -> list:
+    import importlib
+
+    for name in _RANK_MODULES:
+        importlib.import_module(name)
+    return sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "gnnkeras_tpu"
+                  or m.startswith("gnnkeras_tpu."))
+
+
+def test_spawned_ranks_import_no_jax():
+    """The ranks ``parallel.launch.spawn`` starts import only what their
+    function's module imports (this module imports no JAX): the partitioned
+    engine, the ring and the new tools pull in none."""
+    from gnnkeras_tpu_torch.parallel.launch import spawn
+
+    assert spawn(_modules_of_a_rank, 2) == [[], []]
+
+
+def test_partitioned_entry_points_raise_without_card(no_card):
+    from gnnkeras_tpu_torch.data.synthetic import large_banded_graph
+    from gnnkeras_tpu_torch.parallel.mesh import rank_device
+    from gnnkeras_tpu_torch.parallel.partition import partition_graph
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        rank_device("cuda")
+    assert rank_device("cpu").type == "cpu"
+    pg = partition_graph(large_banded_graph(2048, band=8), 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pg.shard(0)
+    assert pg.shard(1, "cpu").nodes.device.type == "cpu"

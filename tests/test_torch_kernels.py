@@ -210,8 +210,10 @@ def test_sources_and_build_paths():
     for name in kernels.SOURCES:
         path = kernels.library_path(name)
         assert path.startswith(kernels.BUILD_DIR) and path.endswith(".so")
-    assert set(kernels.LAUNCHES) == {"strip_matmul", "strip_matmul_t", "fused_unfold_t", "fused_unfold",
-                                     "incidence_select", "incidence_scatter", "qbcsr_matmul", "qbcsr_matmul_t"}
+    assert set(kernels.LAUNCHES) == {"strip_matmul", "strip_matmul_t", "strip_matmul_bf16_state",
+                                     "strip_matmul_t_bf16_state", "fused_unfold_t", "fused_unfold",
+                                     "incidence_select", "incidence_scatter", "qbcsr_matmul", "qbcsr_matmul_t",
+                                     "ring_all_gather"}
 
 
 # Every width each kernel is built for: the strip kernels' 8-row and 16-row
@@ -511,3 +513,78 @@ def test_exported_arc_program_serves_a_batch_with_more_live_pairs(cuda, tmp_path
     _, _, want, want_mask, _ = model.forward(batch)
     assert torch.equal(mask.cpu(), want_mask)
     torch.testing.assert_close(out.cpu()[want_mask], want[want_mask], rtol=1e-5, atol=1e-6)
+
+
+# The strip kernels' bf16-state instantiation (the experiment scripts'
+# product, ``round_state=True``): every width they are built for (8- and
+# 16-row chunks), slots 32, 64 and 128, both directions.  The plain version
+# rounds the state the same way, so only the order of f32 sums differs.
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["strip_matmul", "strip_matmul_t"])
+@pytest.mark.parametrize("slot", [32, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 24])
+def test_bf16_state_strip_kernel_matches_plain_on_card(cuda, d, slot, direction):
+    g = torch.Generator().manual_seed(d + slot)
+    x = torch.randn(d, 40 * 128, generator=g)
+    m = ((torch.rand(40, slot, 128, generator=g) < 0.1) * torch.rand(40, slot, 128, generator=g)).to(torch.bfloat16)
+    x, m = x.to(cuda), m.to(cuda)
+    plain = {"strip_matmul": strip._strip_matmul_plain, "strip_matmul_t": strip._strip_matmul_t_plain}[direction]
+    want = plain(x, m, None, slot=slot, round_state=True)
+    before = dict(kernels.LAUNCHES)
+    got = getattr(strip, direction)(x, m, slot=slot, round_state=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert kernels.LAUNCHES[direction + "_bf16_state"] == before[direction + "_bf16_state"] + 1
+    assert kernels.LAUNCHES[direction] == before[direction]
+    # the unrounded product differs: the instantiation does round
+    assert (getattr(strip, direction)(x, m, slot=slot) - got).abs().max() > 1e-4
+
+
+def test_bf16_state_refuses_what_it_is_not_built_for():
+    x, m, _ = _strip_inputs("float32", t=2)
+    with pytest.raises(ValueError, match="round_state"):
+        strip.strip_matmul(x, m, round_state=True)
+    x, strip_op, scale, blocks, blocks_scale = _mixed_inputs("bfloat16", 32, ts=16, tb=1)
+    with pytest.raises(ValueError, match="round_state"):
+        strip.strip_matmul(x, strip_op, None, blocks, None, slot=32, round_state=True)
+
+
+# The ring all-gather (kernel row 9) on P ranks sharing the card: against its
+# plain version bit for bit (it only moves data), at widths 1 to 40, a single
+# row, row counts whose bytes are not a multiple of 16 (the kernel's narrower
+# copies), bf16 and f32, a block larger than the first buffer (the group's
+# regions are reallocated), and every call right after the last on one group
+# (the flags are running counters: no reset between launches).
+_RING_SHAPES = [(rows, d, dt) for d in (1, 3, 8, 14, 16, 40) for rows, dt in ((1, "float32"), (37, "bfloat16"),
+                                                                               (1000, "float32"))]
+_RING_SHAPES.append((120_000, 8, "float32"))
+
+
+def _ring_on_card(rank: int, world: int) -> list:
+    from gnnkeras_tpu_torch.ops import ring
+    from gnnkeras_tpu_torch.parallel.mesh import rank_device
+
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    out = []
+    for i, (rows, d, dt) in enumerate(_RING_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(1000 * i + rank)
+        x = torch.randn(rows, d, generator=g, device=dev).to(getattr(torch, dt))
+        before = kernels.LAUNCHES["ring_all_gather"]
+        got = ring.ring_all_gather(x)
+        again = ring.ring_all_gather(x)
+        want = ring._ring_all_gather_plain(x)
+        out.append((rows, d, dt, bool(torch.equal(got, want)), bool(torch.equal(again, want)),
+                    kernels.LAUNCHES["ring_all_gather"] - before))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3, 4])
+def test_ring_kernel_matches_plain_on_card(cuda, parts):
+    from gnnkeras_tpu_torch.parallel.launch import spawn
+
+    for rank_results in spawn(_ring_on_card, parts, timeout_s=600):
+        for rows, d, dt, equal, equal_again, launches in rank_results:
+            assert equal and equal_again, (parts, rows, d, dt)
+            assert launches == 2
