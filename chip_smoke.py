@@ -11,10 +11,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    CUDA kernels of ``gnnkeras_tpu_torch/csrc`` built with nvcc, all at once;
 2. kernel checks: each kernel (the strip aggregation's forward and backward,
    the feature-major fused unfold, the row-major fused unfold with bf16 and
-   f32 blocks, the arc readout's incidence select and scatter) against
-   its plain PyTorch version on the card, on the bench-scale flagship batch
-   (the synthetic Mutagenicity-shaped batch of ``bench.py``: ~131k nodes,
-   ~267k arcs, 4,337 graphs), its arc-focused twin and on a small ragged
+   f32 blocks, the arc readout's incidence select and scatter; the scatter
+   also against the pairs' one-hot products, and against itself bit for
+   bit) against its plain PyTorch version on the card, on the bench-scale
+   flagship batch (the synthetic Mutagenicity-shaped batch of ``bench.py``:
+   ~131k nodes, ~267k arcs, 4,337 graphs), its arc-focused twin and on a small ragged
    batch; the incidence kernels also on a pair list of more than 10,240
    pairs.  Times from CUDA graphs replayed between CUDA events, both warm
    (the same operands call after call, resident in L2) and cold (calls
@@ -95,8 +96,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    500k-node graph: one partition into 4 parts (``dense_blocks``, halo,
    ``agg_dtype='auto'``), 4 ranks on the one card (spawned processes, gloo;
    whether an MPS server can run is probed before this process takes the
-   card), the ring kernel (row 9) bit for bit against its plain version at
-   the halo's and the full state's shape, the forward through both
+   card), the ring kernels (row 9) bit for bit against their plain version
+   at the halo's and the full state's shape, timed beside the plain version
+   and gloo's ``all_gather``; the forward through both
    transports against the single-device forward, and one Adam step through
    ``collective`` against the single-device step, with launches per rank.
 
@@ -831,13 +833,18 @@ def check_incidence(inc, arc_src, arc_dst, label, timed, d=14):
     ct_dst = torch.randn((a, d), generator=gen, device=dev)
     with torch.no_grad():
         got_sel, want_sel = I.incidence_select(state, inc), I._incidence_select_plain(state, inc)
-        got_sc, want_sc = I.incidence_scatter(ct_src, ct_dst, inc), I._incidence_scatter_plain(ct_src, ct_dst, inc)
+        got_sc, want_sc = I.incidence_scatter(ct_src, ct_dst, inc), I._incidence_scatter_walk(ct_src, ct_dst, inc)
+        again_sc, pairs_sc = I.incidence_scatter(ct_src, ct_dst, inc), I._incidence_scatter_plain(ct_src, ct_dst, inc)
     torch.cuda.synchronize()
     # the select is a copy: bit for bit
     for got, want in zip(got_sel, want_sel):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), label
-    # the scatter: f32 sums of a node's few incident cotangents in another order
+    # the scatter: f32 sums of a node's few incident cotangents in another
+    # order than its plain walk and than the pairs' one-hot products; the
+    # same bits from call to call
     torch.testing.assert_close(got_sc, want_sc, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_sc, pairs_sc, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got_sc.view(torch.int32), again_sc.view(torch.int32)), label
     src_t, dst_t = torch.as_tensor(arc_src, device=dev).long(), torch.as_tensor(arc_dst, device=dev).long()
     assert torch.equal(got_sel[0][:a], state[src_t]) and torch.equal(got_sel[1][:a], state[dst_t])
     common = {"phase": "kernel_check", "batch": label, "d": d, "pairs": inc.n_pairs, "live_pairs": inc.n_live,
@@ -848,7 +855,8 @@ def check_incidence(inc, arc_src, arc_dst, label, timed, d=14):
         cols_bytes = inc.n_live * (2 * 128 + 1) * 4
         a_pad = inc.n_arc_tiles * 128
         sel_bytes = n * d * 4 + cols_bytes + (inc.n_arc_tiles + 1) * 4 + 2 * a_pad * d * 4
-        sc_bytes = 2 * a * d * 4 + cols_bytes + (inc.n_node_tiles + 1) * 4 + n * d * 4
+        # the scatter reads the cotangents and the node index, not the cols
+        sc_bytes = 2 * a * d * 4 + (inc.node_start.numel() + inc.node_entry.numel()) * 4 + n * d * 4
 
         def copy_pairs():
             return dataclasses.replace(inc, **{f.name: getattr(inc, f.name).clone() for f in dataclasses.fields(inc)
@@ -868,7 +876,7 @@ def check_incidence(inc, arc_src, arc_dst, label, timed, d=14):
             sc["kernel_cold_ms"] = graph_ms([lambda o=o: I.incidence_scatter(*o) for o in copies])
             sc["cold_copies"] = len(copies)
             del copies
-            sc["plain_ms"] = graph_ms([lambda: I._incidence_scatter_plain(ct_src, ct_dst, inc)])
+            sc["plain_ms"] = graph_ms([lambda: I._incidence_scatter_walk(ct_src, ct_dst, inc)])
             # two scatter-adds into a zeroed output, a yardstick only
             sc["library_ms"] = graph_ms([lambda: state.new_zeros((n, d)).index_add_(0, src_t, ct_src)
                                          .index_add_(0, dst_t, ct_dst)])
@@ -1339,25 +1347,26 @@ def mps_probe():
 
 
 def _ring_times(x, reps=20):
-    """(kernel ms, plain ms, library ms) of one gather of ``x`` on this rank:
-    the ring kernel (CUDA events around ``reps`` calls, checked once after),
-    its plain version (point-to-point sends through host memory, host clock)
-    and gloo's ``all_gather`` of the same tensors through host memory
-    (``parallel/collectives.all_gather``, host clock), each after a barrier."""
+    """Times of one gather of ``x`` on this rank, each after a barrier: the
+    ring kernels (CUDA events around ``reps`` calls), the host clock of a
+    call, its plain version (point-to-point sends through host memory, host
+    clock) and gloo's ``all_gather`` of the same tensors through host memory
+    (``parallel/collectives.all_gather``, host clock)."""
     import torch
     import torch.distributed as dist
     from gnnkeras_tpu_torch.ops import ring as R
     from gnnkeras_tpu_torch.parallel.collectives import all_gather
 
-    dist.barrier()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        R.ring_all_gather(x, check=False)
-    b.record()
-    b.synchronize()
-    R.ring_error()
-    kernel = a.elapsed_time(b) / reps
+    def event_ms(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
 
     def host_ms(fn, calls=5):
         dist.barrier()
@@ -1368,7 +1377,10 @@ def _ring_times(x, reps=20):
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3 / calls
 
-    return kernel, host_ms(lambda: R._ring_all_gather_plain(x)), host_ms(lambda: all_gather(x))
+    return {"kernel_ms": event_ms(lambda: R.ring_all_gather(x)),
+            "kernel_host_ms": host_ms(lambda: R.ring_all_gather(x), calls=reps),
+            "plain_ms": host_ms(lambda: R._ring_all_gather_plain(x)),
+            "library_ms": host_ms(lambda: all_gather(x))}
 
 
 def _partition_rank(rank, world, shard, halo_rows):
@@ -1396,15 +1408,14 @@ def _partition_rank(rank, world, shard, halo_rows):
         x = torch.randn((rows, 8), generator=torch.Generator(device=dev).manual_seed(100 + rank), device=dev)
         kernels.reset_launches()
         got = R.ring_all_gather(x)
-        assert kernels.LAUNCHES["ring_all_gather"] == 1
+        assert kernels.LAUNCHES["ring_all_gather"] == 2  # the push and the copy-out
         want = R._ring_all_gather_plain(x)
         assert torch.equal(got, want), label  # a copy: bit for bit
-        ms, plain_ms, library_ms = _ring_times(x)
         # bytes on the card for the whole group's gather: every rank's block
         # read once, every rank's output (all P blocks) written once
         n_bytes = world * (1 + world) * x.numel() * x.element_size()
-        res["ring"][label] = {"rows": rows, "d": 8, "max_abs_diff": float((got - want).abs().max()), "kernel_ms": ms,
-                              "plain_ms": plain_ms, "library_ms": library_ms, "bytes": n_bytes}
+        res["ring"][label] = {"rows": rows, "d": 8, "max_abs_diff": float((got - want).abs().max()),
+                              **_ring_times(x), "bytes": n_bytes}
 
     model = large_graph_gnn(dev, seed=0)
     for transport in ("collective", "pallas_ring"):
@@ -1509,7 +1520,9 @@ def partitioned_section(card, g, batch, mps):
     for r in ranks:
         want = {"strip_matmul": 12}
         assert r["collective"]["launches"] == want, r["collective"]["launches"]
-        assert r["pallas_ring"]["launches"] == {**want, "ring_all_gather": 4}, r["pallas_ring"]["launches"]
+        # 4 ring calls a forward (the first of 5 iterations reads the peeled
+        # aggregate), 2 kernels each
+        assert r["pallas_ring"]["launches"] == {**want, "ring_all_gather": 8}, r["pallas_ring"]["launches"]
         assert r["step"]["launches"] == {"strip_matmul": 12, "strip_matmul_t": 12}, r["step"]["launches"]
     # one Adam step: the tolerances of phase 14 (a bias gradient sums 500,000
     # terms of both signs: entries below 1e-4 of the leaf's largest |g| are
@@ -1557,7 +1570,7 @@ def main():
     import gnnkeras_tpu_torch  # noqa: F401  (fails outside a checkout of the repository)
     from gnnkeras_tpu_torch import from_graph_object, kernels
     from gnnkeras_tpu_torch.data.synthetic import arc_gnn, bench_arc_graph, bench_graph, flagship_gnn, random_molecules
-    from gnnkeras_tpu_torch.ops.incidence import build_incidence_pairs
+    from gnnkeras_tpu_torch.ops.incidence import build_incidence_pairs, build_node_index
 
     card = card_line()
     print(card, flush=True)
@@ -1625,10 +1638,16 @@ def main():
         b_arc_cpu = from_graph_object(bench_arc, slot_pack=128, strip_dtype="int8", device="cpu")
     b_arc = b_arc_cpu.to("cuda")
     n_real_arcs = int(bench_arc.arcs.shape[0])
+    host_build_s = time.perf_counter() - t0
+    # the scatter's node-major index alone (part of host_build_s)
+    t0 = time.perf_counter()
+    build_node_index(b_arc_cpu.arc_src.numpy(), b_arc_cpu.arc_dst.numpy(), b_arc.num_nodes)
+    node_index_s = time.perf_counter() - t0
     spread_src, spread_dst = spread_pairs(b_arc.num_arcs, b_arc.num_nodes)
     spread_inc = build_incidence_pairs(spread_src, spread_dst, b_arc.num_nodes).to("cuda")
     assert spread_inc.n_live > 10_240, spread_inc.n_live
-    emit({"phase": "bench_arc_batch", "host_build_s": time.perf_counter() - t0, "arcs": n_real_arcs,
+    emit({"phase": "bench_arc_batch", "host_build_s": host_build_s, "node_index_build_s": node_index_s,
+          "arcs": n_real_arcs,
           "padded_arcs": b_arc.num_arcs, "padded_nodes": b_arc.num_nodes, "pairs": b_arc.arc_inc.n_pairs,
           "live_pairs": b_arc.arc_inc.n_live, "arc_tiles": b_arc.arc_inc.n_arc_tiles,
           "node_tiles": b_arc.arc_inc.n_node_tiles, "strip_storage": str(b_arc.strip.strip.dtype),

@@ -5,9 +5,11 @@
 //                       y_dst[128 at + r] = state[128 nt + cols_dst[p, r]]
 //                       for every pair p = (at, nt) and row r with cols >= 0;
 //                       rows no pair touches are zero;
-//   scatter (backward): out[128 nt + c] = sum over pairs p = (at, nt), rows r
-//                       of [cols_src[p, r] == c] ct_src[128 at + r]
-//                                       + [cols_dst[p, r] == c] ct_dst[128 at + r].
+//   scatter (backward): out[n] = sum over arc rows a < n_rows of
+//                       [arc_src[a] == n] ct_src[a] + [arc_dst[a] == n] ct_dst[a],
+//                       the terms in the order of the node-major index:
+//                       out[n] = sum over k in node_start[n] .. node_start[n+1]
+//                       of ct_{e & 1}[e >> 1],  e = node_entry[k].
 //
 // Replaces: gnnkeras_tpu/ops/incidence.py, both directions of each of its
 // pair kernels: _fwd_kernel (launched by incidence_select_xla, above the
@@ -21,7 +23,8 @@
 //
 // What bounds both on an H100: bytes.  The select reads the (N, d) state and
 // the (B, 128) i32 cols of both endpoints and writes two (A_pad, d) f32
-// arrays; the scatter moves the same bytes the other way.  There is no
+// arrays.  The scatter reads the two (A, d) cotangents and the node index
+// (N + 1 offsets, 2 A entries) and writes the (N, d) output.  There is no
 // arithmetic to speak of (the scatter adds each cotangent row once).
 //
 // Select design: one block per arc tile walks its run of pairs
@@ -33,18 +36,24 @@
 // subnormals included.  A per-row flag in shared memory records which rows a
 // pair wrote; the rest are zeroed at the end, so the output needs no memset.
 //
-// Scatter design: one block per (node tile, chunk of DC features).  Thread c
-// owns node column c and keeps its DC sums in registers.  Per pair the block
-// stages the two cols rows and the arc tile's two 128 x DC cotangent chunks
-// in shared memory (coalesced; rows past the arc count read as zero), and
-// each thread walks the 128 cols entries, adding the rows that name its
-// column.  Pairs in run order, rows in order, source before destination:
-// the sum's order is fixed, so the result is the same from run to run, and
-// there are no global atomics.  The sums go back through shared memory so
-// the (N, d) output is written in contiguous runs.
+// Scatter design: the node-major index (node_start, node_entry, built on the
+// host with the pairs) lists each node row's incident entries e = 2 a + s,
+// ascending.  A group of nv = d / VEC consecutive threads owns one node row,
+// thread v its VEC features: it walks the row's entries (the group reads the
+// same entry, one broadcast), adds vector v of cotangent row e >> 1 of
+// ct_src or ct_dst (VEC floats per load, 16 bytes where d allows) into
+// registers, and writes its vector once, zero for a node without arcs, so the
+// output needs no memset and consecutive threads write one contiguous run.
+// Four entries are loaded ahead of their rows to keep loads in flight; they
+// are added in the index's order.  The work is one read per (entry, feature):
+// it grows with the arcs, not with the pairs, and there are no shared-memory
+// stages, no block barriers and no global atomics.  The sum's order is fixed
+// (arc rows ascending, source before destination), so the result is the same
+// from run to run.  Entries of arc rows >= n_rows (the cotangents' row
+// count) add nothing.
 //
-// Pairs from n_live on are inert padding (all cols -1) and are not walked.
-// n_live is read on the device, from the one-element array the pairs carry:
+// The select walks no pair from n_live on: those are inert padding (all cols
+// -1).  n_live is read on the device, from the one-element array the pairs carry:
 // a program saved by torch.export takes it from each batch it is called
 // with, never from the batch it was traced on.
 //
@@ -59,6 +68,7 @@ namespace {
 
 constexpr int TILE = 128;
 constexpr int SELECT_THREADS = 256;
+constexpr int SCATTER_THREADS = 256;
 
 template <int VEC> struct Vec;
 template <> struct Vec<1> { using T = float; };
@@ -113,60 +123,55 @@ __global__ void __launch_bounds__(SELECT_THREADS) incidence_select_kernel(
   }
 }
 
-template <int DC>
-__global__ void __launch_bounds__(TILE) incidence_scatter_kernel(
+template <int VEC>
+__global__ void __launch_bounds__(SCATTER_THREADS) incidence_scatter_kernel(
     const float* __restrict__ ct_src, const float* __restrict__ ct_dst, int n_rows,
-    const int* __restrict__ b_start, const int* __restrict__ b_arc_tile, const int* __restrict__ b_cols_src,
-    const int* __restrict__ b_cols_dst, float* __restrict__ out, int d, const int* __restrict__ n_live) {
-  constexpr int DCP = DC + 1;  // padded rows: thread c reads row r at bank (r * DCP + f) mod 32
-  __shared__ float cts[2][TILE * DCP];
-  __shared__ int cols[2][TILE];
-  const int j = blockIdx.x;
-  const int f0 = blockIdx.y * DC;
-  const int dc = min(DC, d - f0);
-  const int c = threadIdx.x;
-
-  float acc[DC];
+    const int* __restrict__ node_start, const int* __restrict__ node_entry, float* __restrict__ out, int nv,
+    long n_items) {
+  using V = typename Vec<VEC>::T;
+  const long t = static_cast<long>(blockIdx.x) * SCATTER_THREADS + threadIdx.x;
+  if (t >= n_items) return;
+  const long node = t / nv;
+  const int v = static_cast<int>(t - node * nv);
+  const V* src = reinterpret_cast<const V*>(ct_src);
+  const V* dst = reinterpret_cast<const V*>(ct_dst);
+  float acc[VEC];
 #pragma unroll
-  for (int f = 0; f < DC; ++f) acc[f] = 0.f;
-
-  const int p_end = min(b_start[j + 1], *n_live);
-  for (int p = b_start[j]; p < p_end; ++p) {
-    __syncthreads();  // the previous pair's stage is read out
-    const long arc0 = static_cast<long>(b_arc_tile[p]) * TILE;
-    cols[0][c] = b_cols_src[static_cast<long>(p) * TILE + c];
-    cols[1][c] = b_cols_dst[static_cast<long>(p) * TILE + c];
-    for (int i = c; i < TILE * dc; i += TILE) {
-      const int r = i / dc, f = i - r * dc;
-      const long row = arc0 + r;
-      const bool in = row < n_rows;
-      cts[0][r * DCP + f] = in ? ct_src[row * d + f0 + f] : 0.f;
-      cts[1][r * DCP + f] = in ? ct_dst[row * d + f0 + f] : 0.f;
+  for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+  // cotangent vector v of entry e, zero for an arc row past n_rows
+  auto row = [&](int e) {
+    V x;
+    const int a = e >> 1;
+    if (a < n_rows) {
+      x = __ldg(((e & 1) ? dst : src) + static_cast<long>(a) * nv + v);
+    } else {
+      float* xf = reinterpret_cast<float*>(&x);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) xf[j] = 0.f;
     }
-    __syncthreads();
-    for (int r = 0; r < TILE; ++r) {
-      if (cols[0][r] == c) {
+    return x;
+  };
+  auto add = [&](const V& x) {
+    const float* xf = reinterpret_cast<const float*>(&x);
 #pragma unroll
-        for (int f = 0; f < DC; ++f)
-          if (f < dc) acc[f] += cts[0][r * DCP + f];
-      }
-      if (cols[1][r] == c) {
-#pragma unroll
-        for (int f = 0; f < DC; ++f)
-          if (f < dc) acc[f] += cts[1][r * DCP + f];
-      }
-    }
+    for (int j = 0; j < VEC; ++j) acc[j] += xf[j];
+  };
+  const int hi = __ldg(node_start + node + 1);
+  int k = __ldg(node_start + node);
+  for (; k + 4 <= hi; k += 4) {  // four rows in flight, added in order
+    const V x0 = row(__ldg(node_entry + k)), x1 = row(__ldg(node_entry + k + 1));
+    const V x2 = row(__ldg(node_entry + k + 2)), x3 = row(__ldg(node_entry + k + 3));
+    add(x0);
+    add(x1);
+    add(x2);
+    add(x3);
   }
-  __syncthreads();
+  for (; k < hi; ++k) add(row(__ldg(node_entry + k)));
+  V r;
+  float* rf = reinterpret_cast<float*>(&r);
 #pragma unroll
-  for (int f = 0; f < DC; ++f)
-    if (f < dc) cts[0][c * DCP + f] = acc[f];
-  __syncthreads();
-  const long node0 = static_cast<long>(j) * TILE;
-  for (int i = c; i < TILE * dc; i += TILE) {
-    const int r = i / dc, f = i - r * dc;
-    out[(node0 + r) * d + f0 + f] = cts[0][r * DCP + f];
-  }
+  for (int j = 0; j < VEC; ++j) rf[j] = acc[j];
+  reinterpret_cast<V*>(out)[t] = r;
 }
 
 }  // namespace
@@ -194,24 +199,24 @@ int gnn_incidence_select(const void* state, const void* f_start, const void* f_n
   return static_cast<int>(cudaGetLastError());
 }
 
-int gnn_incidence_scatter(const void* ct_src, const void* ct_dst, int n_rows, const void* b_start,
-                          const void* b_arc_tile, const void* b_cols_src, const void* b_cols_dst, void* out, int d,
-                          int n_node_tiles, const void* n_live, void* stream) {
-  if (d < 1 || n_node_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+int gnn_incidence_scatter(const void* ct_src, const void* ct_dst, int n_rows, const void* node_start,
+                          const void* node_entry, void* out, int d, int n_nodes, int vec, void* stream) {
+  if (d < 1 || n_nodes < 1 || d % vec) return static_cast<int>(cudaErrorInvalidValue);
+  const int nv = d / vec;
+  const long n_items = static_cast<long>(n_nodes) * nv;
+  const dim3 grid(static_cast<unsigned>((n_items + SCATTER_THREADS - 1) / SCATTER_THREADS));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto launch = [&](auto kernel, int dc) {
-    const dim3 grid(n_node_tiles, (d + dc - 1) / dc);
-    kernel<<<grid, TILE, 0, s>>>(
-        static_cast<const float*>(ct_src), static_cast<const float*>(ct_dst), n_rows,
-        static_cast<const int*>(b_start), static_cast<const int*>(b_arc_tile), static_cast<const int*>(b_cols_src),
-        static_cast<const int*>(b_cols_dst), static_cast<float*>(out), d, static_cast<const int*>(n_live));
+  auto args = [&](auto kernel) {
+    kernel<<<grid, SCATTER_THREADS, 0, s>>>(static_cast<const float*>(ct_src), static_cast<const float*>(ct_dst),
+                                            n_rows, static_cast<const int*>(node_start),
+                                            static_cast<const int*>(node_entry), static_cast<float*>(out), nv,
+                                            n_items);
   };
-  if (d <= 8) {
-    launch(incidence_scatter_kernel<8>, 8);
-  } else if (d <= 16) {
-    launch(incidence_scatter_kernel<16>, 16);
-  } else {
-    launch(incidence_scatter_kernel<32>, 32);
+  switch (vec) {
+    case 4: args(incidence_scatter_kernel<4>); break;
+    case 2: args(incidence_scatter_kernel<2>); break;
+    case 1: args(incidence_scatter_kernel<1>); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

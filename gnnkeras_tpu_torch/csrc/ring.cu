@@ -1,240 +1,312 @@
-// Ring all-gather between the ranks of a process group on one node: every
-// rank contributes a block of ``nbytes`` and receives every rank's block in
-// rank order,
+// All-gather between the ranks of a process group on one node: every rank
+// contributes a block of ``nbytes`` and receives every rank's block in rank
+// order,
 //
-//   out[q * nbytes : (q + 1) * nbytes] = x of rank q,   q = 0 .. P - 1,
-//
-// in P - 1 steps around the ring: at step i a rank sends the block of rank
-// (r - i) mod P (its own at step 0, at later steps the one it received at
-// step i - 1) into its right neighbour's receive slot (i + 1) mod 2, and
-// receives the block of rank (r - i - 1) mod P from its left neighbour.
+//   out[q * nbytes : (q + 1) * nbytes] = x of rank q,   q = 0 .. P - 1.
 //
 // Replaces: gnnkeras_tpu/ops/ring.py, _ring_kernel launched by
 // ring_all_gather (the pallas_ring transport of PartitionedGNN, the
 // per-iteration halo exchange of the edge-partitioned engine).  The TPU
-// kernel sends with remote DMAs into double-buffered VMEM slots, gates each
-// send on a credit semaphore from the right neighbour and opens with a
-// barrier with both neighbours.  Here the two receive slots and the flag
-// words of each rank live in device memory that the ranks map into each
-// other's address space through CUDA IPC (gnn_ring_alloc / gnn_ring_open,
-// the handles exchanged once per group by the caller), and the kernel stores
-// straight into the right neighbour's slot.
+// kernel runs P - 1 ring steps: remote DMAs into the right neighbour's
+// double-buffered VMEM slots, each gated on a credit semaphore.  Here a
+// call is one push and one wait:
 //
-// Flags instead of semaphores.  Each rank's flag area holds, per slot s and
-// per thread block b (block b of every rank moves chunk b of every block, so
-// each chunk runs its own independent ring):
-//   ready[s][b]   bumped by the left neighbour after it wrote chunk b of slot s,
-//   credit[s][b]  bumped by the right neighbour when it is done with its slot s
-//                 (copied out, and forwarded unless it was the last step),
-//   sent[s][b], recvd[s][b]  this rank's own running counts.
-// All four are monotonic counters over the group's lifetime: a write into the
-// neighbour's slot s waits until credit[s][b] has caught up with sent[s][b],
-// a read of the own slot waits until ready[s][b] exceeds recvd[s][b].  No
-// reset is needed between launches, and a launch never waits for a barrier
-// beyond its neighbours' progress (the counters order consecutive calls).
-// Flags are read with ld.acquire.sys and bumped with red.release.sys after a
-// system-scope fence; slot data is read with ld.global.cg (L2, not a stale
-// L1 line from an earlier call).
+//   push      a kernel stores x straight into slot r of every peer's receive
+//             region (rank r's block, P - 1 stores of the block, and the own
+//             copy into out), then the rank records its push event;
+//   wait      for every peer q, the host waits (bounded, on a counter in
+//             host memory the ranks share) until q has recorded its push of
+//             this call, then the stream waits on q's event: the wait is the
+//             GPU's cross-process event wait, not a spinning kernel;
+//   copy-out  a kernel copies the P - 1 received blocks of the own region
+//             into out, then the rank records its copy event.
 //
-// Bounded waits.  Every wait spins for at most ``timeout_ns`` of the GPU's
-// global timer; on expiry thread 0 writes 1 into ``err`` and the block
-// returns.  The wrapper reads ``err`` after the launch and raises: the ring
-// is then broken (the counters of the ranks disagree) and the group must be
-// set up again.
+// Every rank's region holds P slots of ``cap`` bytes (slot q receives rank
+// q's block) and lives in device memory that the group's ranks map into each
+// other's address space through CUDA IPC; the push and copy events are
+// interprocess events, their handles exchanged once per group with the
+// regions' (gnn_ring_create / gnn_ring_connect, the exchange done by the
+// caller).  Before a push writes into a peer's region, the host waits until
+// that peer has recorded its copy-out of the previous call and the stream
+// waits on that event, so a slot is never overwritten while it is read.
 //
-// What bounds it on an H100: on one card P ranks are P processes, and
-// without MPS their kernels are time-sliced, not concurrent, so a rank
-// waiting for its neighbour keeps the card until the scheduler switches
-// contexts: each step can cost a time slice, far above the bytes' time
-// (P · nbytes written and read at 3.35 TB/s).  Under MPS the ranks' kernels
-// run side by side and the copies (16-byte vectors where the block size and
-// the pointers allow) bound it.
+// Counters instead of semaphores.  The shared host counters ``posted[q]``
+// and ``freed[q]`` are the number of pushes and copy-outs rank q has
+// recorded over the group's lifetime; call n waits for freed[q] >= n - 1
+// and posted[q] >= n.  A rank cannot run more than one call ahead of a peer
+// (its push of call n + 1 needs the peer's copy-out of call n), so when the
+// host sees the count, the event's latest record is the one of that call.
+// No reset is needed between calls and there is no entry barrier.  The
+// copy-out reads the region with ld.global.cg, and the push ends with a
+// system-scope fence: the stores also reach a peer on another card (NVLink)
+// before the event completes.
 //
-// Entries: gnn_ring_alloc, gnn_ring_open, gnn_ring_close, gnn_ring_free and
-// gnn_ring_all_gather, plain C functions bound with ctypes.  Each returns a
-// cudaError_t; the launch runs on the caller's stream.
+// Bounded waits.  Only the host waits for another rank, each wait for at
+// most ``timeout_ns``; on expiry the call returns kTimedOut and the wrapper
+// raises (the counters of the ranks then disagree and the group must be set
+// up again).  The device never waits for a rank whose work is not already
+// queued: a stream waits only on an event whose record the host has seen.
+// That queued work can still fail to finish (the peer's context died after
+// it posted); gnn_ring_settle bounds that case: it polls the own copy event
+// of the last call, which completes only after the peers' pushes did, for at
+// most ``timeout_ns``.  A caller runs it before it synchronises with the
+// card (the engine: before each iteration's convergence test and at the end
+// of a forward).
+//
+// What bounds it on an H100: on one card the P ranks are P processes whose
+// contexts the GPU time-slices (no MPS).  A context whose stream waits on
+// another process's event has no runnable work, so the scheduler runs the
+// contexts that do: a call costs the context switches between the ranks'
+// pushes and copy-outs, not a time slice per wait.  Under MPS or across cards
+// the copies bound it: each rank writes P blocks and reads and writes P - 1
+// (16-byte vectors where the block size and the pointers allow).
+//
+// Entries: gnn_ring_create, gnn_ring_connect, gnn_ring_all_gather,
+// gnn_ring_settle and gnn_ring_destroy, plain C functions bound with ctypes.  Each returns a
+// cudaError_t (or kTimedOut); the kernels run on the caller's stream.
 
 #include <cuda_runtime.h>
+#include <sched.h>
 #include <stdint.h>
 #include <string.h>
+#include <time.h>
 
 namespace {
 
-constexpr int kMaxBlocks = 64;  // chunks per block, and thread blocks per launch
 constexpr int kThreads = 256;
-constexpr size_t kFlagBytes = 4096;  // flag area at the start of a rank's region
-// offsets (in uint32 words) of the flag arrays, each [2][kMaxBlocks]
-constexpr int kReady = 0;
-constexpr int kCredit = 2 * kMaxBlocks;
-constexpr int kSent = 4 * kMaxBlocks;
-constexpr int kRecvd = 6 * kMaxBlocks;
-static_assert(8 * kMaxBlocks * 4 <= kFlagBytes, "flag area too small");
+constexpr int kMaxChunks = 64;         // thread blocks per destination
+constexpr int kTimedOut = -1;          // a host wait for a peer ran out
+constexpr size_t kHandleBytes = 64;    // cudaIpcMemHandle_t, cudaIpcEventHandle_t
+constexpr size_t kLine = 64;           // one counter per cache line
+static_assert(sizeof(cudaIpcMemHandle_t) == kHandleBytes, "IPC memory handle size");
+static_assert(sizeof(cudaIpcEventHandle_t) == kHandleBytes, "IPC event handle size");
 
-__device__ __forceinline__ uint32_t load_acquire(const uint32_t* p) {
-  uint32_t v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
+struct Ring {
+  int rank, P;
+  size_t cap;
+  char* region;           // this rank's P receive slots
+  char** regions;         // host: every rank's region as mapped here (own at rank)
+  char** regions_dev;     // the same array on the device, for the push
+  cudaEvent_t* push_ev;   // every rank's push event (own created, peers' opened)
+  cudaEvent_t* copy_ev;   // every rank's copy event
+  uint64_t* counters;     // shared host memory: posted[q] at line q, freed[q] at line P + q
+  uint64_t calls;
+};
+
+uint64_t* posted(Ring* g, int q) {
+  return reinterpret_cast<uint64_t*>(reinterpret_cast<char*>(g->counters) + q * kLine);
+}
+uint64_t* freed(Ring* g, int q) {
+  return reinterpret_cast<uint64_t*>(reinterpret_cast<char*>(g->counters) + (g->P + q) * kLine);
 }
 
-__device__ __forceinline__ void bump_release(uint32_t* p) {
-  asm volatile("red.release.sys.global.add.u32 [%0], 1;" ::"l"(p) : "memory");
+uint64_t now_ns() {
+  timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return static_cast<uint64_t>(t.tv_sec) * 1000000000ull + t.tv_nsec;
 }
 
-__device__ __forceinline__ uint64_t now_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Thread 0 spins until *flag >= want; false (and err set) on timeout.
-__device__ bool wait_at_least(const uint32_t* flag, uint32_t want, uint64_t timeout_ns, int* err) {
+// Until *counter >= want: spin with yields, then sleep 20 us between polls;
+// false when timeout_ns ran out first.
+bool wait_host(const uint64_t* counter, uint64_t want, uint64_t timeout_ns) {
   const uint64_t t0 = now_ns();
-  // counters wrap after 2^32 bumps; compare by signed difference
-  while (static_cast<int32_t>(load_acquire(flag) - want) < 0) {
-    if (now_ns() - t0 > timeout_ns) {
-      atomicExch(err, 1);
-      return false;
+  for (long i = 0;; ++i) {
+    if (__atomic_load_n(counter, __ATOMIC_ACQUIRE) >= want) return true;
+    if (i < 4096) {
+      sched_yield();
+      continue;
     }
-    __nanosleep(256);
+    if (now_ns() - t0 > timeout_ns) return false;
+    const timespec nap = {0, 20000};
+    nanosleep(&nap, nullptr);
   }
-  return true;
 }
 
 template <typename V>
-__device__ __forceinline__ void copy_chunk(V* __restrict__ dst, const V* __restrict__ src, long lo, long hi,
-                                           bool src_shared) {
-  for (long k = lo + threadIdx.x; k < hi; k += blockDim.x) dst[k] = src_shared ? __ldcg(src + k) : src[k];
-}
-
-template <typename V>
-__global__ void __launch_bounds__(kThreads) ring_kernel(const V* __restrict__ x, V* __restrict__ out,
-                                                        uint32_t* my, uint32_t* left, uint32_t* right, int rank,
-                                                        int P, long words, long chunk, size_t cap,
-                                                        uint64_t timeout_ns, int* err) {
-  __shared__ bool failed;
-  const int b = blockIdx.x;
-  const long lo = b * chunk;
+__global__ void __launch_bounds__(kThreads) push_kernel(const V* __restrict__ x, V* __restrict__ out,
+                                                        char* const* __restrict__ regions, int rank, long words,
+                                                        long chunk, size_t cap) {
+  const int q = blockIdx.y;
+  const long lo = blockIdx.x * chunk;
   const long hi = lo + chunk < words ? lo + chunk : words;
-  auto slot = [cap](uint32_t* region, int s) {
-    return reinterpret_cast<V*>(reinterpret_cast<char*>(region) + kFlagBytes + s * cap);
-  };
-  uint32_t sent[2], recvd[2];
-  if (threadIdx.x == 0) {
-    failed = false;
-    for (int s = 0; s < 2; ++s) {
-      sent[s] = my[kSent + s * kMaxBlocks + b];
-      recvd[s] = my[kRecvd + s * kMaxBlocks + b];
-    }
-  }
-  copy_chunk(out + rank * words, x, lo, hi, false);  // the own block
-
-  const V* src = x;
-  for (int i = 0; i < P - 1; ++i) {
-    const int s = (i + 1) & 1;
-    // the right neighbour must be done with everything written into its slot s
-    if (threadIdx.x == 0 && !wait_at_least(my + kCredit + s * kMaxBlocks + b, sent[s], timeout_ns, err))
-      failed = true;
-    __syncthreads();
-    if (failed) break;
-    copy_chunk(slot(right, s), src, lo, hi, i > 0);
-    __threadfence_system();
-    __syncthreads();  // every thread's stores, and reads of src, are done
-    if (threadIdx.x == 0) {
-      bump_release(right + kReady + s * kMaxBlocks + b);
-      ++sent[s];
-      // the slot just forwarded from (received at step i - 1) is free again
-      if (i > 0) bump_release(left + kCredit + (i & 1) * kMaxBlocks + b);
-      if (!wait_at_least(my + kReady + s * kMaxBlocks + b, recvd[s] + 1, timeout_ns, err)) failed = true;
-      ++recvd[s];
-    }
-    __syncthreads();
-    if (failed) break;
-    const int q = ((rank - i - 1) % P + P) % P;
-    copy_chunk(out + q * words, slot(my, s), lo, hi, true);
-    src = slot(my, s);
-    if (i == P - 2) {  // the last receipt is not forwarded: free it now
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        __threadfence_system();
-        bump_release(left + kCredit + s * kMaxBlocks + b);
-      }
-    }
-  }
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < 2; ++s) {
-      my[kSent + s * kMaxBlocks + b] = sent[s];
-      my[kRecvd + s * kMaxBlocks + b] = recvd[s];
-    }
-  }
+  V* dst = q == rank ? out + static_cast<long>(rank) * words : reinterpret_cast<V*>(regions[q] + rank * cap);
+  for (long k = lo + threadIdx.x; k < hi; k += kThreads) dst[k] = x[k];
+  __threadfence_system();
 }
 
 template <typename V>
-cudaError_t launch(const void* x, void* out, void* my, void* left, void* right, int rank, int P, size_t nbytes,
-                   size_t cap, uint64_t timeout_ns, void* err, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads) copy_kernel(const char* __restrict__ region, V* __restrict__ out,
+                                                        int rank, long words, long chunk, size_t cap) {
+  const int q = blockIdx.y;
+  if (q == rank) return;
+  const long lo = blockIdx.x * chunk;
+  const long hi = lo + chunk < words ? lo + chunk : words;
+  const V* src = reinterpret_cast<const V*>(region + q * cap);
+  V* dst = out + static_cast<long>(q) * words;
+  for (long k = lo + threadIdx.x; k < hi; k += kThreads) dst[k] = __ldcg(src + k);
+}
+
+template <typename V>
+cudaError_t launch(Ring* g, const void* x, void* out, size_t nbytes, bool push, cudaStream_t stream) {
   const long words = static_cast<long>(nbytes / sizeof(V));
-  // chunks of at least 32 KiB, at most kMaxBlocks of them
-  long blocks = static_cast<long>((nbytes + 32767) / 32768);
-  blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
-  const long chunk = (words + blocks - 1) / blocks;
-  ring_kernel<V><<<static_cast<int>(blocks), kThreads, 0, stream>>>(
-      static_cast<const V*>(x), static_cast<V*>(out), static_cast<uint32_t*>(my), static_cast<uint32_t*>(left),
-      static_cast<uint32_t*>(right), rank, P, words, chunk, cap, timeout_ns, static_cast<int*>(err));
+  // chunks of at least 32 KiB, at most kMaxChunks of them
+  long chunks = static_cast<long>((nbytes + 32767) / 32768);
+  chunks = chunks < 1 ? 1 : (chunks > kMaxChunks ? kMaxChunks : chunks);
+  const long chunk = (words + chunks - 1) / chunks;
+  const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(g->P));
+  if (push)
+    push_kernel<V><<<grid, kThreads, 0, stream>>>(static_cast<const V*>(x), static_cast<V*>(out), g->regions_dev,
+                                                   g->rank, words, chunk, g->cap);
+  else
+    copy_kernel<V><<<grid, kThreads, 0, stream>>>(g->region, static_cast<V*>(out), g->rank, words, chunk, g->cap);
   return cudaGetLastError();
 }
 
-bool aligned(const void* p, size_t a) { return reinterpret_cast<uintptr_t>(p) % a == 0; }
+cudaError_t launch_any(Ring* g, const void* x, void* out, size_t nbytes, bool push, cudaStream_t stream) {
+  auto aligned = [](const void* p, size_t a) { return reinterpret_cast<uintptr_t>(p) % a == 0; };
+  // the slots start at multiples of cap (a multiple of 256) in 256-aligned regions
+  const size_t a = (nbytes % 16 == 0 && aligned(x, 16) && aligned(out, 16))  ? 16
+                   : (nbytes % 4 == 0 && aligned(x, 4) && aligned(out, 4))   ? 4
+                   : (nbytes % 2 == 0 && aligned(x, 2) && aligned(out, 2))   ? 2
+                                                                              : 1;
+  switch (a) {
+    case 16: return launch<int4>(g, x, out, nbytes, push, stream);
+    case 4: return launch<unsigned int>(g, x, out, nbytes, push, stream);
+    case 2: return launch<unsigned short>(g, x, out, nbytes, push, stream);
+    default: return launch<unsigned char>(g, x, out, nbytes, push, stream);
+  }
+}
 
-}  // namespace
-
-// A rank's region: the flag area (zeroed) and two receive slots of ``cap``
-// bytes each; ``handle`` receives its cudaIpcMemHandle_t (64 bytes).
-extern "C" int gnn_ring_alloc(size_t cap, void** region, void* handle) {
-  if (cap % 256 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMalloc(region, kFlagBytes + 2 * cap);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemset(*region, 0, kFlagBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaIpcMemHandle_t h;
-  err = cudaIpcGetMemHandle(&h, *region);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  memcpy(handle, &h, sizeof(h));
+// Wait until every peer's count has reached ``want``, then let the stream
+// wait on the peer's event of that count.
+int wait_peers(Ring* g, bool pushes, uint64_t want, uint64_t timeout_ns, cudaStream_t stream) {
+  for (int q = 0; q < g->P; ++q) {
+    if (q == g->rank) continue;
+    if (!wait_host(pushes ? posted(g, q) : freed(g, q), want, timeout_ns)) return kTimedOut;
+    const cudaError_t e = cudaStreamWaitEvent(stream, pushes ? g->push_ev[q] : g->copy_ev[q], 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   return 0;
 }
 
-// Map another rank's region (its 64-byte handle) into this process.
-extern "C" int gnn_ring_open(const void* handle, void** region) {
-  cudaIpcMemHandle_t h;
-  memcpy(&h, handle, sizeof(h));
-  return static_cast<int>(cudaIpcOpenMemHandle(region, h, cudaIpcMemLazyEnablePeerAccess));
+// Record the own event and publish the count at once: the peers' streams
+// wait on the event, not their hosts.
+int post(Ring* g, bool pushes, uint64_t n, cudaStream_t stream) {
+  const cudaError_t e = cudaEventRecord(pushes ? g->push_ev[g->rank] : g->copy_ev[g->rank], stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  __atomic_store_n(pushes ? posted(g, g->rank) : freed(g, g->rank), n, __ATOMIC_RELEASE);
+  return 0;
 }
 
-extern "C" int gnn_ring_close(void* region) { return static_cast<int>(cudaIpcCloseMemHandle(region)); }
+}  // namespace
 
-extern "C" int gnn_ring_free(void* region) { return static_cast<int>(cudaFree(region)); }
-
-// out (P * nbytes) <- every rank's x (nbytes), in rank order.  ``my`` is this
-// rank's region, ``left`` / ``right`` its neighbours' regions mapped here;
-// ``err`` a device int the kernel sets to 1 on a timed-out wait.
-extern "C" int gnn_ring_all_gather(const void* x, void* out, void* my, void* left, void* right, int rank, int P,
-                                   size_t nbytes, size_t cap, unsigned long long timeout_ns, void* err,
-                                   void* stream) {
-  if (P < 2 || rank < 0 || rank >= P || nbytes == 0 || nbytes > cap) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* ptrs[] = {x, out};
-  bool a16 = nbytes % 16 == 0, a4 = nbytes % 4 == 0, a2 = nbytes % 2 == 0;
-  for (const void* p : ptrs) {
-    a16 = a16 && aligned(p, 16);
-    a4 = a4 && aligned(p, 4);
-    a2 = a2 && aligned(p, 2);
-  }
-  cudaError_t e;
-  if (a16)
-    e = launch<int4>(x, out, my, left, right, rank, P, nbytes, cap, timeout_ns, err, s);
-  else if (a4)
-    e = launch<unsigned int>(x, out, my, left, right, rank, P, nbytes, cap, timeout_ns, err, s);
-  else if (a2)
-    e = launch<unsigned short>(x, out, my, left, right, rank, P, nbytes, cap, timeout_ns, err, s);
-  else
-    e = launch<unsigned char>(x, out, my, left, right, rank, P, nbytes, cap, timeout_ns, err, s);
+// This rank's part of a group: its region of P slots of ``cap`` bytes, its
+// push and copy events, the host counters at ``counters`` (2 P lines of 64
+// bytes, zeroed, shared by the ranks).  Writes the region's and the two
+// events' IPC handles (3 x 64 bytes) into ``handles`` for the other ranks.
+extern "C" int gnn_ring_create(int rank, int P, size_t cap, void* counters, void** ring, void* handles) {
+  if (P < 2 || rank < 0 || rank >= P || cap % 256 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Ring* g = new Ring();
+  g->rank = rank;
+  g->P = P;
+  g->cap = cap;
+  g->counters = static_cast<uint64_t*>(counters);
+  g->regions = new char*[P]();
+  g->push_ev = new cudaEvent_t[P]();
+  g->copy_ev = new cudaEvent_t[P]();
+  *ring = g;
+  char* h = static_cast<char*>(handles);
+  cudaError_t e = cudaMalloc(reinterpret_cast<void**>(&g->region), P * cap);
+  if (e == cudaSuccess) e = cudaIpcGetMemHandle(reinterpret_cast<cudaIpcMemHandle_t*>(h), g->region);
+  const unsigned flags = cudaEventDisableTiming | cudaEventInterprocess;
+  if (e == cudaSuccess) e = cudaEventCreateWithFlags(&g->push_ev[rank], flags);
+  if (e == cudaSuccess) e = cudaEventCreateWithFlags(&g->copy_ev[rank], flags);
+  if (e == cudaSuccess)
+    e = cudaIpcGetEventHandle(reinterpret_cast<cudaIpcEventHandle_t*>(h + kHandleBytes), g->push_ev[rank]);
+  if (e == cudaSuccess)
+    e = cudaIpcGetEventHandle(reinterpret_cast<cudaIpcEventHandle_t*>(h + 2 * kHandleBytes), g->copy_ev[rank]);
+  g->regions[rank] = g->region;
   return static_cast<int>(e);
+}
+
+// Map every other rank's region and open its events: ``handles`` holds the P
+// ranks' 3 x 64 bytes from gnn_ring_create, in rank order.
+extern "C" int gnn_ring_connect(void* ring, const void* handles) {
+  Ring* g = static_cast<Ring*>(ring);
+  const char* h = static_cast<const char*>(handles);
+  cudaError_t e = cudaSuccess;
+  for (int q = 0; q < g->P && e == cudaSuccess; ++q) {
+    if (q == g->rank) continue;
+    const char* hq = h + q * 3 * kHandleBytes;
+    cudaIpcMemHandle_t mh;
+    cudaIpcEventHandle_t ph, ch;
+    memcpy(&mh, hq, kHandleBytes);
+    memcpy(&ph, hq + kHandleBytes, kHandleBytes);
+    memcpy(&ch, hq + 2 * kHandleBytes, kHandleBytes);
+    e = cudaIpcOpenMemHandle(reinterpret_cast<void**>(&g->regions[q]), mh, cudaIpcMemLazyEnablePeerAccess);
+    if (e == cudaSuccess) e = cudaIpcOpenEventHandle(&g->push_ev[q], ph);
+    if (e == cudaSuccess) e = cudaIpcOpenEventHandle(&g->copy_ev[q], ch);
+  }
+  if (e == cudaSuccess) e = cudaMalloc(reinterpret_cast<void**>(&g->regions_dev), g->P * sizeof(char*));
+  if (e == cudaSuccess) e = cudaMemcpy(g->regions_dev, g->regions, g->P * sizeof(char*), cudaMemcpyHostToDevice);
+  return static_cast<int>(e);
+}
+
+// Unmap the peers' regions and events and free the own; the caller makes
+// sure first that no rank's work on them is pending.
+extern "C" int gnn_ring_destroy(void* ring) {
+  Ring* g = static_cast<Ring*>(ring);
+  cudaError_t first = cudaSuccess;
+  auto keep = [&first](cudaError_t e) {
+    if (first == cudaSuccess) first = e;
+  };
+  for (int q = 0; q < g->P; ++q) {
+    if (q != g->rank && g->regions[q] != nullptr) keep(cudaIpcCloseMemHandle(g->regions[q]));
+    if (g->push_ev[q] != nullptr) keep(cudaEventDestroy(g->push_ev[q]));
+    if (g->copy_ev[q] != nullptr) keep(cudaEventDestroy(g->copy_ev[q]));
+  }
+  if (g->regions_dev != nullptr) keep(cudaFree(g->regions_dev));
+  if (g->region != nullptr) keep(cudaFree(g->region));
+  delete[] g->regions;
+  delete[] g->push_ev;
+  delete[] g->copy_ev;
+  delete g;
+  return static_cast<int>(first);
+}
+
+// out (P * nbytes) <- every rank's x (nbytes), in rank order: wait for the
+// peers' copy-outs of the previous call, push, wait for the peers' pushes,
+// copy out.  Returns kTimedOut when a host wait ran out.
+extern "C" int gnn_ring_all_gather(void* ring, const void* x, void* out, size_t nbytes,
+                                   unsigned long long timeout_ns, void* stream) {
+  Ring* g = static_cast<Ring*>(ring);
+  if (nbytes == 0 || nbytes > g->cap) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint64_t n = ++g->calls;
+  int err = n > 1 ? wait_peers(g, false, n - 1, timeout_ns, s) : 0;
+  if (err == 0) err = static_cast<int>(launch_any(g, x, out, nbytes, true, s));
+  if (err == 0) err = post(g, true, n, s);
+  if (err == 0) err = wait_peers(g, true, n, timeout_ns, s);
+  if (err == 0) err = static_cast<int>(launch_any(g, x, out, nbytes, false, s));
+  if (err == 0) err = post(g, false, n, s);
+  return err;
+}
+
+// Until the last call's copy-out has completed on the card (and with it the
+// peers' pushes it waited for): polls the own copy event, yielding, then
+// sleeping 20 us between polls.  Returns kTimedOut after ``timeout_ns``.
+extern "C" int gnn_ring_settle(void* ring, unsigned long long timeout_ns) {
+  Ring* g = static_cast<Ring*>(ring);
+  const uint64_t t0 = now_ns();
+  for (long i = 0;; ++i) {
+    const cudaError_t e = cudaEventQuery(g->copy_ev[g->rank]);
+    if (e != cudaErrorNotReady) return static_cast<int>(e);
+    if (i < 4096) {
+      sched_yield();
+      continue;
+    }
+    if (now_ns() - t0 > timeout_ns) return kTimedOut;
+    const timespec nap = {0, 20000};
+    nanosleep(&nap, nullptr);
+  }
 }

@@ -52,18 +52,18 @@ _ENTRIES = {
     "fused_unfold_rm": {"gnn_fused_unfold": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]},
     "incidence": {
         "gnn_incidence_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
-        "gnn_incidence_scatter": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+        "gnn_incidence_scatter": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     },
     "qbcsr": {
         "gnn_qbcsr_matmul": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "gnn_qbcsr_matmul_t": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "ring": {
-        "gnn_ring_alloc": [_S, ctypes.POINTER(_P), ctypes.c_char_p],
-        "gnn_ring_open": [ctypes.c_char_p, ctypes.POINTER(_P)],
-        "gnn_ring_close": [_P],
-        "gnn_ring_free": [_P],
-        "gnn_ring_all_gather": [_P, _P, _P, _P, _P, _I, _I, _S, _S, ctypes.c_ulonglong, _P, _P],
+        "gnn_ring_create": [_I, _I, _S, _P, ctypes.POINTER(_P), ctypes.c_char_p],
+        "gnn_ring_connect": [_P, ctypes.c_char_p],
+        "gnn_ring_destroy": [_P],
+        "gnn_ring_all_gather": [_P, _P, _P, _S, ctypes.c_ulonglong, _P],
+        "gnn_ring_settle": [_P, ctypes.c_ulonglong],
     },
 }
 SOURCES = tuple(_ENTRIES)

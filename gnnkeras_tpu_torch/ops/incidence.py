@@ -7,14 +7,19 @@ gradient of that gather is a scatter-add of the (A, d) cotangent rows into
 node tile) pair: for each of the pair's 128 arc rows, the local column
 (node % 128) of its source endpoint when that endpoint lies in the pair's
 node tile, else -1; likewise for the destination.  The ``f_*`` arrays hold
-the pairs sorted by arc tile (the select walks them per arc tile), the
-``b_*`` arrays the same pairs sorted by node tile (the scatter walks them
-per node tile); ``f_start`` / ``b_start`` are the run offsets.
+the pairs sorted by arc tile (the select walks them per arc tile);
+``f_start`` holds the run offsets.  The scatter does not walk the pairs: it
+reads a node-major index (``node_start`` / ``node_entry``) that lists, for
+every node row, its incident (arc row, endpoint) entries in a fixed order.
+The JAX package also carries the pairs sorted by node tile (``b_*``), which
+its scatter walks; nothing here reads them, so they are not built.
 
 ``incidence_select`` is the forward kernel and ``incidence_scatter`` the
 backward (both in ``csrc/incidence.cu``); on a CPU tensor each runs its
-plain PyTorch version (``_incidence_select_plain``,
-``_incidence_scatter_plain``).  ``incidence_gather`` is the differentiable
+plain PyTorch version (``_incidence_select_plain``, and
+``_incidence_scatter_walk``, the walk of the node-major index).
+``_incidence_scatter_plain`` computes the scatter from the pairs instead,
+an independent reference for both.  ``incidence_gather`` is the differentiable
 pair: a ``torch.autograd.Function`` whose forward is the select and whose
 backward is the scatter.  The select is also the custom operator
 ``gnnkeras_tpu_torch::incidence_select``, which an exported program calls.  The select is an exact copy, bit for bit; the
@@ -51,29 +56,31 @@ class IncidencePairs:
     ``cols_src[k, r]`` is the local column of arc row ``arc_tile[k]·128 + r``'s
     source endpoint when that endpoint lies in ``node_tile[k]``, else -1
     (also for rows past the arc count); ``cols_dst`` likewise for the
-    destination.  ``b_*`` are sorted by node tile, ``f_*`` by arc tile; both
-    hold the same pairs.  Pairs from ``n_live`` on are inert padding (all
-    cols -1) at the tail of both orders.  The live count is a one-element
-    tensor (``live``), which the kernels read on the device: a program
-    saved by ``torch.export`` takes it from each batch as an input."""
+    destination; the pairs are sorted by arc tile.  Pairs from ``n_live`` on
+    are inert padding (all cols -1) at the tail.  The live count is a one-element
+    tensor (``live``), which the select reads on the device: a program
+    saved by ``torch.export`` takes it from each batch as an input.
 
-    b_arc_tile: torch.Tensor  # (B,) i32
-    b_node_tile: torch.Tensor  # (B,) i32
-    b_cols_src: torch.Tensor  # (B, 128) i32, -1 = no contribution
-    b_cols_dst: torch.Tensor  # (B, 128) i32
-    b_start: torch.Tensor  # (n_node_tiles + 1,) i32 run offsets per node tile
+    ``node_entry[node_start[n]:node_start[n + 1]]`` lists node row ``n``'s
+    incident entries ``2·a + s``, ascending: arc row ``a`` whose source
+    (``s = 0``) or destination (``s = 1``) endpoint is ``n``, for every arc
+    row the pairs were built from.  The scatter reads only these two; the
+    pair padding leaves them as they are."""
+
     f_arc_tile: torch.Tensor  # (B,) i32
     f_node_tile: torch.Tensor  # (B,) i32
-    f_cols_src: torch.Tensor  # (B, 128) i32
+    f_cols_src: torch.Tensor  # (B, 128) i32, -1 = no contribution
     f_cols_dst: torch.Tensor  # (B, 128) i32
     f_start: torch.Tensor  # (n_arc_tiles + 1,) i32 run offsets per arc tile
     live: torch.Tensor  # (1,) i32 count of live pairs
+    node_start: torch.Tensor  # (n_node_tiles·128 + 1,) i32 offsets into node_entry per node row
+    node_entry: torch.Tensor  # (2·arcs,) i32 entries 2·arc + endpoint, node-major
     n_arc_tiles: int
     n_node_tiles: int
 
     @property
     def n_pairs(self) -> int:
-        return int(self.b_arc_tile.shape[0])
+        return int(self.f_arc_tile.shape[0])
 
     @property
     def n_live(self) -> int:
@@ -91,6 +98,18 @@ class IncidencePairs:
 
 
 register_tensor_dataclass(IncidencePairs, static=("n_arc_tiles", "n_node_tiles"))
+
+
+def build_node_index(arc_src: np.ndarray, arc_dst: np.ndarray, n_nodes_padded: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The scatter's node-major index (``node_start``, ``node_entry``), i32:
+    entry ``e = 2·a + s`` is arc ``a``'s source (s = 0) or destination (s =
+    1) endpoint; a stable sort of the entries by their node lists each
+    node's entries ascending, and the counts' running sum gives the
+    offsets."""
+    ends = np.stack([np.asarray(arc_src), np.asarray(arc_dst)], axis=1).reshape(-1).astype(np.int32)
+    start = np.zeros(n_nodes_padded + 1, np.int32)
+    np.cumsum(np.bincount(ends, minlength=n_nodes_padded), out=start[1:])
+    return start, np.argsort(ends, kind="stable").astype(np.int32)
 
 
 def build_incidence_pairs(arc_src: np.ndarray, arc_dst: np.ndarray, n_nodes_padded: int) -> Optional[IncidencePairs]:
@@ -126,31 +145,26 @@ def build_incidence_pairs(arc_src: np.ndarray, arc_dst: np.ndarray, n_nodes_padd
     f_cols_src[inverse[:a], r_local] = srcn % TILE
     f_cols_dst[inverse[a:], r_local] = dstn % TILE
 
-    order = np.argsort(f_node_tile, kind="stable")  # the scatter's order
-
     def _pad(arr, fill):
         b_pad = -(-B // _PAIR_KB) * _PAIR_KB
         if b_pad == B:
             return arr
         return np.concatenate([arr, np.full((b_pad - B,) + arr.shape[1:], fill, arr.dtype)])
 
-    # inert padding keeps each order sorted: the last tile on the run axis,
-    # tile 0 on the other, cols all -1
-    b_node_tile = _pad(f_node_tile[order], n_node_tiles - 1)
+    # inert padding keeps the order sorted: the last arc tile, node tile 0,
+    # cols all -1
     f_arc_padded = _pad(f_arc_tile, n_arc_tiles - 1)
+    node_start, node_entry = build_node_index(srcn, dstn, n_nodes_padded)
     T = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
     return IncidencePairs(
-        b_arc_tile=T(_pad(f_arc_tile[order], 0)),
-        b_node_tile=T(b_node_tile),
-        b_cols_src=T(_pad(f_cols_src[order], -1)),
-        b_cols_dst=T(_pad(f_cols_dst[order], -1)),
-        b_start=T(np.searchsorted(b_node_tile, np.arange(n_node_tiles + 1))),
         f_arc_tile=T(f_arc_padded),
         f_node_tile=T(_pad(f_node_tile, 0)),
         f_cols_src=T(_pad(f_cols_src, -1)),
         f_cols_dst=T(_pad(f_cols_dst, -1)),
         f_start=T(np.searchsorted(f_arc_padded, np.arange(n_arc_tiles + 1))),
         live=T([B]),
+        node_start=T(node_start),
+        node_entry=T(node_entry),
         n_arc_tiles=n_arc_tiles,
         n_node_tiles=n_node_tiles,
     )
@@ -158,8 +172,8 @@ def build_incidence_pairs(arc_src: np.ndarray, arc_dst: np.ndarray, n_nodes_padd
 
 def pad_incidence_pairs(inc: Optional[IncidencePairs], n_pairs: int) -> Optional[IncidencePairs]:
     """Pad the pair list to ``n_pairs`` (rounded up to a multiple of
-    ``_PAIR_KB``) with inert pairs (all cols -1) on the last tile of each
-    order, so only the final run offsets move."""
+    ``_PAIR_KB``) with inert pairs (all cols -1) on the last arc tile, so
+    only the final run offset moves."""
     if inc is None:
         return None
     n_pairs = -(-max(int(n_pairs), 1) // _PAIR_KB) * _PAIR_KB
@@ -177,11 +191,6 @@ def pad_incidence_pairs(inc: Optional[IncidencePairs], n_pairs: int) -> Optional
 
     return dataclasses.replace(
         inc,
-        b_arc_tile=cat(inc.b_arc_tile, 0),
-        b_node_tile=cat(inc.b_node_tile, inc.n_node_tiles - 1),
-        b_cols_src=cat(inc.b_cols_src, -1),
-        b_cols_dst=cat(inc.b_cols_dst, -1),
-        b_start=last_plus(inc.b_start),
         f_arc_tile=cat(inc.f_arc_tile, inc.n_arc_tiles - 1),
         f_node_tile=cat(inc.f_node_tile, 0),
         f_cols_src=cat(inc.f_cols_src, -1),
@@ -219,10 +228,27 @@ def _select_plain(state, f_arc_tile, f_node_tile, f_cols_src, f_cols_dst, n_arc_
     return out[0], out[1]
 
 
+def _incidence_scatter_walk(ct_src: torch.Tensor, ct_dst: torch.Tensor, inc: IncidencePairs) -> torch.Tensor:
+    """``Inc_srcᵀ·ct_src + Inc_dstᵀ·ct_dst`` through the node-major index,
+    the kernel's plain version: every entry's cotangent row (zero for an arc
+    row past the A given) added into its node row, in the index's order.
+    (A, d) cotangents with A ≤ A_pad → (N, d)."""
+    a, d = ct_src.shape
+    n = inc.node_start.shape[0] - 1
+    entry = inc.node_entry.long()
+    arc = entry // 2
+    rows = torch.cat([ct_src, ct_dst, ct_src.new_zeros((1, d))])
+    # entry e reads row arc of ct_src or ct_dst; an arc past A reads the zero row
+    take = torch.where(arc < a, arc + (entry % 2) * a, 2 * a)
+    node = torch.searchsorted(inc.node_start.long(), torch.arange(entry.shape[0], device=entry.device), right=True) - 1
+    return ct_src.new_zeros((n, d)).index_add_(0, node, rows[take])
+
+
 def _incidence_scatter_plain(ct_src: torch.Tensor, ct_dst: torch.Tensor, inc: IncidencePairs) -> torch.Tensor:
-    """``Inc_srcᵀ·ct_src + Inc_dstᵀ·ct_dst``: per pair, the one-hot of its
-    cols transposed times its arc tile's cotangent rows, summed per node
-    tile.  (A, d) cotangents with A ≤ A_pad → (N, d)."""
+    """``Inc_srcᵀ·ct_src + Inc_dstᵀ·ct_dst`` from the pairs, not the node
+    index: per pair, the one-hot of its cols transposed times its arc
+    tile's cotangent rows, summed per node tile.  (A, d) cotangents with
+    A ≤ A_pad → (N, d)."""
     a, d = ct_src.shape
     a_pad = inc.n_arc_tiles * TILE
     dev = ct_src.device
@@ -231,16 +257,16 @@ def _incidence_scatter_plain(ct_src: torch.Tensor, ct_dst: torch.Tensor, inc: In
         if a != a_pad:
             ct = torch.cat([ct, ct.new_zeros((a_pad - a, d))])
         tiles.append(ct.reshape(inc.n_arc_tiles, TILE, d))
-    iota = torch.arange(TILE, device=dev, dtype=inc.b_cols_src.dtype)
+    iota = torch.arange(TILE, device=dev, dtype=inc.f_cols_src.dtype)
     out = torch.zeros((inc.n_node_tiles, TILE, d), dtype=ct_src.dtype, device=dev)
     for p0 in range(0, inc.n_pairs, _PLAIN_CHUNK):
         sl = slice(p0, p0 + _PLAIN_CHUNK)
-        at = inc.b_arc_tile[sl].long()
+        at = inc.f_arc_tile[sl].long()
         prod = 0
-        for cols, t in zip((inc.b_cols_src[sl], inc.b_cols_dst[sl]), tiles):
+        for cols, t in zip((inc.f_cols_src[sl], inc.f_cols_dst[sl]), tiles):
             one_hot = (cols[:, :, None] == iota).to(ct_src.dtype)  # (kb, arc rows, node cols)
             prod = prod + torch.bmm(one_hot.transpose(1, 2), t[at])
-        out.index_add_(0, inc.b_node_tile[sl].long(), prod)
+        out.index_add_(0, inc.f_node_tile[sl].long(), prod)
     return out.reshape(inc.n_node_tiles * TILE, d)
 
 
@@ -324,26 +350,25 @@ def _(state, f_arc_tile, f_node_tile, f_cols_src, f_cols_dst, f_start, live, n_a
 def incidence_scatter(ct_src: torch.Tensor, ct_dst: torch.Tensor, inc: IncidencePairs) -> torch.Tensor:
     """The select's transpose ``Inc_srcᵀ·ct_src + Inc_dstᵀ·ct_dst``: two
     (A, d) f32 cotangents, A ≤ A_pad → (N, d).  A CPU tensor takes the
-    plain version; a CUDA tensor launches ``gnn_incidence_scatter``,
-    counted in ``kernels.LAUNCHES``."""
+    plain walk of the node index; a CUDA tensor launches
+    ``gnn_incidence_scatter``, counted in ``kernels.LAUNCHES``."""
     _check_pairs("incidence_scatter", ct_src, inc)
     if ct_src.shape != ct_dst.shape or ct_src.device != ct_dst.device:
         raise ValueError(f"incidence_scatter: cotangents {tuple(ct_src.shape)} and {tuple(ct_dst.shape)} differ")
     if ct_src.shape[0] > inc.n_arc_tiles * TILE:
         raise ValueError(f"incidence_scatter: {ct_src.shape[0]} rows > {inc.n_arc_tiles * TILE} the pairs cover")
     if ct_src.device.type == "cpu":
-        return _incidence_scatter_plain(ct_src, ct_dst, inc)
+        return _incidence_scatter_walk(ct_src, ct_dst, inc)
     from gnnkeras_tpu_torch import kernels
 
-    _cuda_operands("incidence_scatter", (ct_src, ct_dst),
-                   (inc.b_start, inc.b_arc_tile, inc.b_cols_src, inc.b_cols_dst, inc.live))
+    _cuda_operands("incidence_scatter", (ct_src, ct_dst), (inc.node_start, inc.node_entry))
     a, d = ct_src.shape
-    out = torch.empty((inc.n_node_tiles * TILE, d), dtype=ct_src.dtype, device=ct_src.device)
+    n = inc.node_start.shape[0] - 1
+    out = torch.empty((n, d), dtype=ct_src.dtype, device=ct_src.device)
     fn = kernels.load("incidence").gnn_incidence_scatter
     with torch.cuda.device(ct_src.device):
-        err = fn(ct_src.data_ptr(), ct_dst.data_ptr(), a, inc.b_start.data_ptr(), inc.b_arc_tile.data_ptr(),
-                 inc.b_cols_src.data_ptr(), inc.b_cols_dst.data_ptr(), out.data_ptr(), d, inc.n_node_tiles,
-                 inc.live.data_ptr(), kernels.stream_of(ct_src))
+        err = fn(ct_src.data_ptr(), ct_dst.data_ptr(), a, inc.node_start.data_ptr(), inc.node_entry.data_ptr(),
+                 out.data_ptr(), d, n, _vector_width(d, (ct_src, ct_dst, out)), kernels.stream_of(ct_src))
     kernels.check(err, "incidence_scatter")
     kernels.LAUNCHES["incidence_scatter"] += 1
     return out

@@ -459,9 +459,21 @@ class PartitionedGNN:
                 if self.transport == "pallas_ring":
                     from gnnkeras_tpu_torch.ops.ring import ring_all_gather
 
-                    return ring_all_gather(published.contiguous(), group)
+                    gathered = ring_all_gather(published.contiguous(), group)
+                    if training:  # BatchNorm's batch moments synchronise with the card next
+                        settle_ring()
+                    return gathered
                 return all_gather(published, group)
             return all_gather(x, group)
+
+        def settle_ring():
+            """Bound the ring's wait for the peers' pushes (``ring_wait``)
+            before a host sync could hang on it: once an iteration, before
+            the convergence test, and once at the end of the forward."""
+            if use_halo and self.transport == "pallas_ring":
+                from gnnkeras_tpu_torch.ops.ring import ring_wait
+
+                ring_wait(group)
 
         def exchange(x):
             """Local rows, then the exchanged rows (the row space of
@@ -504,6 +516,7 @@ class PartitionedGNN:
             """The single-device test, its flag maximised over the group: one
             rank still moving keeps every rank iterating."""
             local = unconverged_flag(state, state_old, node_mask, threshold, feature_axis)
+            settle_ring()  # pmax synchronises with the card
             return pmax(local.to(torch.int32).reshape(1), group)[0] > 0
 
         def transition(state, bn, aggregated=None):
@@ -531,6 +544,7 @@ class PartitionedGNN:
             # per-rank partial readout over global graph rows; their sum is the readout
             out = psum(segment_sum(out * shard.nodegraph_weight[:, None], shard.graph_of_node, shard.n_graphs),
                        group)
+        settle_ring()
         return k, state, out, {**_prefixed("net_state", bn_state), **_prefixed("net_output", bn_out)}
 
     def _local_loss(self, shard: GraphShard, generator):

@@ -23,8 +23,9 @@ import gnnkeras_tpu_torch.ops.incidence as tinc
 from gnnkeras_tpu_torch import kernels
 from torch_port_common import arc_targets, merged_pair, raw_molecules
 
-_FIELDS = ("b_arc_tile", "b_node_tile", "b_cols_src", "b_cols_dst", "b_start",
-           "f_arc_tile", "f_node_tile", "f_cols_src", "f_cols_dst", "f_start")
+# the arc-tile-ordered pairs; the port does not build JAX's node-tile-ordered
+# copy (``b_*``), which only JAX's scatter walks
+_FIELDS = ("f_arc_tile", "f_node_tile", "f_cols_src", "f_cols_dst", "f_start")
 
 pytestmark = pytest.mark.filterwarnings("ignore:int8 mask\\+scale strip storage")
 

@@ -202,7 +202,7 @@ def test_incidence_cpu_wrappers_take_plain_version():
     for got, want in zip(incidence.incidence_select(state, inc), incidence._incidence_select_plain(state, inc)):
         assert torch.equal(got, want)
     torch.testing.assert_close(incidence.incidence_scatter(ct, 2 * ct, inc),
-                               incidence._incidence_scatter_plain(ct, 2 * ct, inc), rtol=0, atol=0)
+                               incidence._incidence_scatter_walk(ct, 2 * ct, inc), rtol=0, atol=0)
     assert kernels.LAUNCHES == before
 
 
@@ -419,7 +419,9 @@ def test_incidence_kernels_match_plain_on_card(cuda, d, case):
     ct_dst = torch.randn(len(src), d, generator=g, device=cuda)
     want_sel = incidence._incidence_select_plain(state, inc)
     want_sc = incidence._incidence_scatter_plain(ct_src, ct_dst, inc)
+    want_walk = incidence._incidence_scatter_walk(ct_src, ct_dst, inc)
     before = dict(kernels.LAUNCHES)
+    outs = []
     for _ in range(2):
         y_src, y_dst = incidence.incidence_select(state, inc)
         out = incidence.incidence_scatter(ct_src, ct_dst, inc)
@@ -429,6 +431,10 @@ def test_incidence_kernels_match_plain_on_card(cuda, d, case):
         assert torch.equal(y_dst.view(torch.int32), want_sel[1].view(torch.int32))
         # f32 sums of a node's few incident cotangents in another order
         torch.testing.assert_close(out, want_sc, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(out, want_walk, rtol=1e-5, atol=1e-5)
+        outs.append(out)
+    # the scatter's sum order is fixed: the same bits from call to call
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
     src_t, dst_t = torch.from_numpy(src).to(cuda).long(), torch.from_numpy(dst).to(cuda).long()
     assert torch.equal(y_src[: len(src)], state[src_t]) and torch.equal(y_dst[: len(src)], state[dst_t])
     assert not y_src[len(src):].any()
@@ -551,31 +557,38 @@ def test_bf16_state_refuses_what_it_is_not_built_for():
 
 # The ring all-gather (kernel row 9) on P ranks sharing the card: against its
 # plain version bit for bit (it only moves data), at widths 1 to 40, a single
-# row, row counts whose bytes are not a multiple of 16 (the kernel's narrower
-# copies), bf16 and f32, a block larger than the first buffer (the group's
-# regions are reallocated), and every call right after the last on one group
-# (the flags are running counters: no reset between launches).
-_RING_SHAPES = [(rows, d, dt) for d in (1, 3, 8, 14, 16, 40) for rows, dt in ((1, "float32"), (37, "bfloat16"),
-                                                                               (1000, "float32"))]
+# row (f32 and bf16), row counts whose bytes are not a multiple of 16 (the
+# kernels' narrower copies), bf16 and f32, a block larger than the first
+# buffer (the group's regions are reallocated), every call right after the
+# last on one group (the counters run on: no reset between calls), and a
+# ring on the sub-group of ranks 1 .. P - 1 beside the world's.
+_RING_SHAPES = [(rows, d, dt) for d in (1, 3, 8, 14, 16, 40) for rows, dt in ((1, "float32"), (1, "bfloat16"),
+                                                                               (37, "bfloat16"), (1000, "float32"))]
 _RING_SHAPES.append((120_000, 8, "float32"))
 
 
 def _ring_on_card(rank: int, world: int) -> list:
+    import torch.distributed as dist
+
     from gnnkeras_tpu_torch.ops import ring
     from gnnkeras_tpu_torch.parallel.mesh import rank_device
 
     dev = rank_device("cuda")
     torch.cuda.set_device(dev)
+    sub = dist.new_group(list(range(1, world)))  # every rank takes part in making it
+    groups = [("world", None)] + ([("ranks_1_up", sub)] if world > 2 and rank > 0 else [])
     out = []
-    for i, (rows, d, dt) in enumerate(_RING_SHAPES):
-        g = torch.Generator(device=dev).manual_seed(1000 * i + rank)
-        x = torch.randn(rows, d, generator=g, device=dev).to(getattr(torch, dt))
-        before = kernels.LAUNCHES["ring_all_gather"]
-        got = ring.ring_all_gather(x)
-        again = ring.ring_all_gather(x)
-        want = ring._ring_all_gather_plain(x)
-        out.append((rows, d, dt, bool(torch.equal(got, want)), bool(torch.equal(again, want)),
-                    kernels.LAUNCHES["ring_all_gather"] - before))
+    for label, group in groups:
+        for i, (rows, d, dt) in enumerate(_RING_SHAPES):
+            g = torch.Generator(device=dev).manual_seed(1000 * i + rank)
+            x = torch.randn(rows, d, generator=g, device=dev).to(getattr(torch, dt))
+            before = kernels.LAUNCHES["ring_all_gather"]
+            got = ring.ring_all_gather(x, group)
+            again = ring.ring_all_gather(x, group)
+            want = ring._ring_all_gather_plain(x, group)
+            out.append((label, rows, d, dt, bool(torch.equal(got, want)), bool(torch.equal(again, want)),
+                        kernels.LAUNCHES["ring_all_gather"] - before))
+    dist.barrier()
     return out
 
 
@@ -584,7 +597,139 @@ def _ring_on_card(rank: int, world: int) -> list:
 def test_ring_kernel_matches_plain_on_card(cuda, parts):
     from gnnkeras_tpu_torch.parallel.launch import spawn
 
-    for rank_results in spawn(_ring_on_card, parts, timeout_s=600):
-        for rows, d, dt, equal, equal_again, launches in rank_results:
-            assert equal and equal_again, (parts, rows, d, dt)
-            assert launches == 2
+    results = spawn(_ring_on_card, parts, timeout_s=600)
+    for rank, rank_results in enumerate(results):
+        labels = {label for label, *_ in rank_results}
+        assert labels == ({"world", "ranks_1_up"} if parts > 2 and rank > 0 else {"world"})
+        for label, rows, d, dt, equal, equal_again, launches in rank_results:
+            assert equal and equal_again, (parts, label, rows, d, dt)
+            assert launches == 4  # two calls, each a push and a copy-out
+
+
+def _ring_peer_stops(rank: int, world: int, timeout_s: float) -> tuple:
+    """One call on both ranks, then a second on rank 0 alone: rank 0's wait
+    for rank 1's push must run out after ``ring.TIMEOUT_S`` and raise, and
+    the group's ring then refuses further calls."""
+    import time
+
+    import torch.distributed as dist
+
+    from gnnkeras_tpu_torch.ops import ring
+    from gnnkeras_tpu_torch.parallel.mesh import rank_device
+
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    ring.TIMEOUT_S = timeout_s
+    x = torch.full((8, 4), float(rank), device=dev)
+    first = bool(torch.equal(ring.ring_all_gather(x), ring._ring_all_gather_plain(x)))
+    dist.barrier()
+    raised, waited, refused = None, None, None
+    if rank == 0:
+        t = time.perf_counter()
+        try:
+            ring.ring_all_gather(x)
+        except RuntimeError as err:
+            raised = str(err)
+        waited = time.perf_counter() - t
+        try:
+            ring.ring_all_gather(x)
+        except RuntimeError as err:
+            refused = str(err)
+    torch.cuda.synchronize()
+    dist.barrier()
+    return first, raised, waited, refused
+
+
+@pytest.mark.cuda
+def test_ring_raises_when_a_peer_never_calls(cuda):
+    from gnnkeras_tpu_torch.parallel.launch import spawn
+
+    timeout_s = 2.0
+    (first0, raised, waited, refused), (first1, *_) = spawn(_ring_peer_stops, 2, [(timeout_s,)] * 2, timeout_s=300)
+    assert first0 and first1
+    assert raised is not None and "ran out" in raised
+    assert timeout_s <= waited < timeout_s + 10.0, waited
+    assert refused is not None and "broken" in refused
+
+
+def _ring_push_stalls(rank: int, world: int, timeout_s: float) -> tuple:
+    """One call on both ranks, then a second whose push on rank 1 is queued
+    behind a kernel that sleeps several times ``ring.TIMEOUT_S``: rank 0's
+    call returns (rank 1 posted it), but ``ring_wait`` must run out after
+    ``ring.TIMEOUT_S`` and raise instead of blocking until the push lands.
+    Once it has landed, rank 0's output is still every rank's block."""
+    import time
+
+    import torch.distributed as dist
+
+    from gnnkeras_tpu_torch.ops import ring
+    from gnnkeras_tpu_torch.parallel.mesh import rank_device
+
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    ring.TIMEOUT_S = timeout_s
+    x = torch.full((8, 4), float(rank), device=dev)
+    first = bool(torch.equal(ring.ring_all_gather(x), ring._ring_all_gather_plain(x)))
+    dist.barrier()
+    raised, waited = None, None
+    if rank == 1:
+        torch.cuda._sleep(int(6e9 * timeout_s))  # about 3-6 timeouts at an H100's 1-2 GHz
+    out = ring.ring_all_gather(x)
+    if rank == 0:
+        t = time.perf_counter()
+        try:
+            ring.ring_wait()
+        except RuntimeError as err:
+            raised = str(err)
+        waited = time.perf_counter() - t
+    torch.cuda.synchronize()
+    landed = bool(torch.equal(out, torch.arange(world, dtype=x.dtype, device=dev).repeat_interleave(8)[:, None]
+                              .expand(-1, 4)))
+    dist.barrier()
+    return first, raised, waited, landed
+
+
+@pytest.mark.cuda
+def test_ring_wait_raises_when_a_peer_push_never_lands(cuda):
+    from gnnkeras_tpu_torch.parallel.launch import spawn
+
+    timeout_s = 2.0
+    (first0, raised, waited, landed0), (first1, _, _, landed1) = spawn(_ring_push_stalls, 2, [(timeout_s,)] * 2,
+                                                                       timeout_s=300)
+    assert first0 and first1
+    assert raised is not None and "did not complete" in raised
+    assert timeout_s <= waited < timeout_s + 1.0, waited
+    assert landed0 and landed1
+
+
+def _ring_counters(rank: int, world: int) -> tuple:
+    """The ring's shared host counters on gloo ranks: each rank writes its
+    line, every rank reads every line after a barrier, and the file behind
+    them is gone once every rank has mapped it."""
+    import os
+    import struct
+
+    import torch.distributed as dist
+
+    from gnnkeras_tpu_torch import kernels
+    from gnnkeras_tpu_torch.ops import ring
+
+    before = set(os.listdir(kernels.BUILD_DIR)) if os.path.isdir(kernels.BUILD_DIR) else set()
+    counters = ring._shared_counters(None, rank, world)
+    struct.pack_into("<Q", counters, 64 * rank, 10 + rank)
+    dist.barrier()
+    seen = [struct.unpack_from("<Q", counters, 64 * q)[0] for q in range(2 * world)]
+    dist.barrier()
+    left = sorted(f for f in set(os.listdir(kernels.BUILD_DIR)) - before if f.startswith("ring-"))
+    size = len(counters)
+    counters.close()
+    return size, seen, left
+
+
+def test_ring_shares_counters_between_ranks():
+    from gnnkeras_tpu_torch.parallel.launch import spawn
+
+    for size, seen, left in spawn(_ring_counters, 3):
+        assert size == 3 * 2 * 64
+        assert seen == [10, 11, 12, 0, 0, 0]
+        assert left == []
