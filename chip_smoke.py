@@ -11,9 +11,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    CUDA kernels of ``gnnkeras_tpu_torch/csrc`` built with nvcc, all at once;
 2. kernel checks: each kernel (the strip aggregation's forward and backward,
    the feature-major fused unfold, the row-major fused unfold with bf16 and
-   f32 blocks, the arc readout's incidence select and scatter; the scatter
-   also against the pairs' one-hot products, and against itself bit for
-   bit) against its plain PyTorch version on the card, on the bench-scale
+   f32 blocks, the arc readout's incidence select and scatter; the select
+   bit for bit against its arc-major copy, the pairs' select and the
+   gather, the scatter also against the pairs' one-hot products, and
+   against itself bit for bit) against its plain PyTorch version on the card, on the bench-scale
    flagship batch (the synthetic Mutagenicity-shaped batch of ``bench.py``:
    ~131k nodes, ~267k arcs, 4,337 graphs), its arc-focused twin and on a small ragged
    batch; the incidence kernels also on a pair list of more than 10,240
@@ -70,9 +71,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    nodes, 3,892,679 arcs within a band of 64, and its band-384 variant):
    the host build; the strip kernel on a diagonal of the banded
    decomposition and kernel row 8 (quantised block product, both
-   directions) on the quantised operators of both graphs, int8 and bf16
-   storage, against their plain versions, with ``torch.sparse.mm`` as the
-   library yardstick; then the node-focused model's eval forward through
+   directions, walking per-block nonzero lists) on the quantised operators
+   of both graphs, int8 and bf16 storage, against their plain versions
+   (the int8 forward also bit for bit against the sum order of a walk over
+   the dense blocks), with ``torch.sparse.mm`` as the library yardstick; then the node-focused model's eval forward through
    ``agg_dtype='auto'`` (the banded int8 decomposition, 3 diagonals: 3
    strip launches per aggregation) and ``agg_dtype='int8'`` on the band-384
    graph (``QuantBcsr``: one row-8 launch per aggregation) and on the
@@ -290,13 +292,56 @@ def event_ms(fn, calls=5, reps=5):
     return float(np.median(times))
 
 
+def fma_f32(a, b, c):
+    """``fmaf(a, b, c)`` on f32 tensors, rounded once: the exact product and
+    sum in f64 rounded to odd, then to f32 (53 ≥ 24 + 2 bits, so the second
+    rounding gives what one rounding of the exact value gives)."""
+    import torch
+
+    p, c = a.double() * b.double(), c.double()  # the product is exact
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)  # s + err == p + c exactly
+    inf = torch.full_like(s, float("inf"))
+    odd = torch.where(err > 0, torch.nextafter(s, inf), torch.nextafter(s, -inf))
+    s = torch.where((err != 0) & ((s.view(torch.int64) & 1) == 0), odd, s)
+    return s.float()
+
+
+def qbcsr_dense_order(x, qm):
+    """The forward of an int8 operator in the sum order of a walk over the
+    dense blocks: per block and destination column, rows ascending, each
+    ``x·m`` (m 0/1: the product is exact) added with one rounding, as
+    ``fmaf(x, m, part)`` does; each block's partial joined to the column's
+    accumulator by ``fmaf(part, scale, acc)``, a destination tile's blocks
+    in ``row_ptr`` order."""
+    import torch
+
+    d, n_blocks = x.shape[0], qm.mask.shape[0]
+    gathered = x.reshape(d, -1, 128)[:, qm.src_tile.long()]  # (d, B, rows)
+    part = x.new_zeros((d, n_blocks, 128))
+    for r in range(128):
+        part = part + gathered[:, :, r:r + 1] * qm.mask[:, r, :].float()
+    row_ptr = qm.row_ptr.long()
+    runs = row_ptr[1:] - row_ptr[:-1]
+    acc = x.new_zeros((d, qm.n_dst_tiles, 128))
+    for k in range(int(runs.max())):
+        tiles = torch.nonzero(runs > k).squeeze(1)
+        blk = row_ptr[tiles] + k
+        acc[:, tiles] = fma_f32(part[:, blk], qm.scale[blk][None], acc[:, tiles])
+    return acc.reshape(d, -1)
+
+
 def check_qbcsr(qm, label, timed, name="qbcsr_matmul", d=8):
     """Kernel row 8 (``qbcsr_matmul`` or its backward ``qbcsr_matmul_t``) on
-    the quantised operator ``qm`` against its plain version, at ``d``
-    feature rows.  Bound: every block, scale and tile index read once, the
-    input state read and the output written once, against 2·d·nnz f32
-    FLOP.  Library yardstick: one ``torch.sparse.mm`` with the operator
-    (transposed for the forward) as a sparse f32 CSR tensor."""
+    the quantised operator ``qm`` against its plain versions (the dense
+    blocks' and the walk of the nonzero lists), at ``d`` feature rows; an
+    int8 forward also bit for bit against the dense walk's sum order.
+    Bound: the direction's nonzero lists, the scale and tile index read
+    once, the input state read and the output written once, against
+    2·d·nnz f32 FLOP (the dense-block design's bound, every block read
+    once, beside it).  Library yardstick: one ``torch.sparse.mm`` with the
+    operator (transposed for the forward) as a sparse f32 CSR tensor."""
     import dataclasses
 
     import torch
@@ -308,26 +353,51 @@ def check_qbcsr(qm, label, timed, name="qbcsr_matmul", d=8):
     dev = qm.mask.device
     gen = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((d, n_in * 128), generator=gen, device=dev)
+    if forward:
+        lists = (qm.nz_start, qm.col_start, qm.col_rows, qm.col_weights)
+        index = (qm.src_tile, qm.row_ptr)
+    else:
+        lists = (qm.nz_start, qm.row_start, qm.row_cols, qm.row_weights)
+        index = (qm.dst_tile, qm.src_order, qm.src_row_ptr)
 
-    def plain(x_, q):
+    def dense(x_, q):
         if forward:
             return B._qbcsr_matmul_plain(x_, q.mask, q.scale, q.src_tile, q.dst_tile, q.n_dst_tiles)
         return B._qbcsr_matmul_t_plain(x_, q.mask, q.scale, q.src_tile, q.dst_tile, q.n_src_tiles)
 
+    def plain(x_, q):
+        if forward:
+            return B._qbcsr_list_matmul_plain(x_, q.scale, q.col_weights, q.src_tile, q.dst_tile, q.nz_start,
+                                              q.col_start, q.col_rows, q.n_dst_tiles)
+        return B._qbcsr_list_matmul_t_plain(x_, q.scale, q.row_weights, q.src_tile, q.dst_tile, q.nz_start,
+                                            q.row_start, q.row_cols, q.n_src_tiles)
+
     with torch.no_grad():
-        got, want = kernel(x, qm), plain(x, qm)
+        got, want, walk = kernel(x, qm), dense(x, qm), plain(x, qm)
+        again = kernel(x, qm)
     torch.cuda.synchronize()
-    # f32 sums of a tile's block products in another order
+    # f32 sums of a tile's block products in another order; a fixed order
+    # and no atomics: the same bits from call to call
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, walk, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32)), label
     res = {"phase": "kernel_check", "kernel": name, "batch": label,
            "storage": str(qm.mask.dtype).replace("torch.", ""), "blocks": int(qm.mask.shape[0]),
            "src_tiles": qm.n_src_tiles, "dst_tiles": qm.n_dst_tiles, "d": d,
            "max_abs_diff": float((got - want).abs().max())}
+    if forward and qm.scale is not None:
+        with torch.no_grad():
+            old_order = qbcsr_dense_order(x, qm)
+        # finite inputs: the list walk skips only entries that add exactly 0
+        assert torch.equal(got.view(torch.int32), old_order.view(torch.int32)), label
+        res["bit_equal_to_dense_order"] = True
+        del old_order
     if timed:
-        nnz = int(torch.count_nonzero(qm.mask))
-        index = (qm.src_tile, qm.row_ptr) if forward else (qm.dst_tile, qm.src_order, qm.src_row_ptr)
-        n_bytes = (qm.mask.numel() * qm.mask.element_size() + (0 if qm.scale is None else qm.scale.numel() * 4)
-                   + sum(t.numel() * 4 for t in index) + x.numel() * 4 + d * n_out * 128 * 4)
+        nnz = int(qm.nz_start[-1])
+        tensors = [t for t in (*lists, qm.scale, *index) if t is not None]
+        n_bytes = sum(t.numel() * t.element_size() for t in tensors) + x.numel() * 4 + d * n_out * 128 * 4
+        dense_bytes = (qm.mask.numel() * qm.mask.element_size() + (0 if qm.scale is None else qm.scale.numel() * 4)
+                       + sum(t.numel() * 4 for t in index) + x.numel() * 4 + d * n_out * 128 * 4)
         with torch.no_grad():
             res["kernel_ms"] = graph_ms([lambda: kernel(x, qm)])
             copy = lambda: dataclasses.replace(qm, **{f.name: getattr(qm, f.name).clone()
@@ -353,7 +423,8 @@ def check_qbcsr(qm, label, timed, name="qbcsr_matmul", d=8):
             res["library_ms"] = event_ms(lambda: torch.sparse.mm(mat, xt))
             del mat, lib
         res["bound_ms"], res["bound_by"] = bound(n_bytes, 2 * d * nnz)
-        res["bytes"], res["nnz"] = n_bytes, nnz
+        res["dense_block_bound_ms"], _ = bound(dense_bytes, 2 * d * nnz)
+        res["bytes"], res["dense_block_bytes"], res["nnz"] = n_bytes, dense_bytes, nnz
     emit(res)
     return res
 
@@ -818,7 +889,9 @@ def spread_pairs(n_arcs, n_nodes, seed=0):
 
 def check_incidence(inc, arc_src, arc_dst, label, timed, d=14):
     """Both incidence kernels on ``inc`` (on the card) at width ``d``: the
-    select held exactly to its plain version, the scatter at f32 tolerance."""
+    select held bit for bit to both its plain versions (the arc-major copy
+    and the pairs' one) and to ``state[arc_src]`` / ``state[arc_dst]``, the
+    scatter at f32 tolerance."""
     import dataclasses
 
     import torch
@@ -829,45 +902,49 @@ def check_incidence(inc, arc_src, arc_dst, label, timed, d=14):
     gen = torch.Generator(device=dev).manual_seed(2)
     state = torch.randn((n, d), generator=gen, device=dev)
     state[0, 0] = -0.0
+    state[1, -1] = 1e-40  # a subnormal
     ct_src = torch.randn((a, d), generator=gen, device=dev)
     ct_dst = torch.randn((a, d), generator=gen, device=dev)
     with torch.no_grad():
-        got_sel, want_sel = I.incidence_select(state, inc), I._incidence_select_plain(state, inc)
+        got_sel = I.incidence_select(state, inc)
+        rows_sel = I._incidence_select_rows(state, inc.arc_ends, inc.n_arc_tiles)
+        pairs_sel = I._incidence_select_plain(state, inc)
         got_sc, want_sc = I.incidence_scatter(ct_src, ct_dst, inc), I._incidence_scatter_walk(ct_src, ct_dst, inc)
         again_sc, pairs_sc = I.incidence_scatter(ct_src, ct_dst, inc), I._incidence_scatter_plain(ct_src, ct_dst, inc)
     torch.cuda.synchronize()
-    # the select is a copy: bit for bit
-    for got, want in zip(got_sel, want_sel):
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), label
+    # the select is a copy: bit for bit, rows past the arcs zero
+    src_t, dst_t = torch.as_tensor(arc_src, device=dev).long(), torch.as_tensor(arc_dst, device=dev).long()
+    bits = lambda t: t.view(torch.int32)
+    for got, rows, pairs, ends in zip(got_sel, rows_sel, pairs_sel, (src_t, dst_t)):
+        assert torch.equal(bits(got), bits(rows)) and torch.equal(bits(got), bits(pairs)), label
+        assert torch.equal(bits(got[:a]), bits(state[ends])) and not got[a:].any(), label
     # the scatter: f32 sums of a node's few incident cotangents in another
     # order than its plain walk and than the pairs' one-hot products; the
     # same bits from call to call
     torch.testing.assert_close(got_sc, want_sc, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got_sc, pairs_sc, rtol=1e-5, atol=1e-5)
     assert torch.equal(got_sc.view(torch.int32), again_sc.view(torch.int32)), label
-    src_t, dst_t = torch.as_tensor(arc_src, device=dev).long(), torch.as_tensor(arc_dst, device=dev).long()
-    assert torch.equal(got_sel[0][:a], state[src_t]) and torch.equal(got_sel[1][:a], state[dst_t])
     common = {"phase": "kernel_check", "batch": label, "d": d, "pairs": inc.n_pairs, "live_pairs": inc.n_live,
               "arc_tiles": inc.n_arc_tiles, "node_tiles": inc.n_node_tiles}
     sel = {**common, "kernel": "incidence_select", "max_abs_diff": 0.0}
     sc = {**common, "kernel": "incidence_scatter", "max_abs_diff": float((got_sc - want_sc).abs().max())}
     if timed:
-        cols_bytes = inc.n_live * (2 * 128 + 1) * 4
         a_pad = inc.n_arc_tiles * 128
-        sel_bytes = n * d * 4 + cols_bytes + (inc.n_arc_tiles + 1) * 4 + 2 * a_pad * d * 4
-        # the scatter reads the cotangents and the node index, not the cols
+        # the select reads the state and the arc-major index, not the pairs
+        sel_bytes = n * d * 4 + inc.arc_ends.numel() * 4 + 2 * a_pad * d * 4
+        # the scatter reads the cotangents and the node index, not the pairs
         sc_bytes = 2 * a * d * 4 + (inc.node_start.numel() + inc.node_entry.numel()) * 4 + n * d * 4
 
-        def copy_pairs():
-            return dataclasses.replace(inc, **{f.name: getattr(inc, f.name).clone() for f in dataclasses.fields(inc)
-                                               if isinstance(getattr(inc, f.name), torch.Tensor)})
+        def copy_index():
+            return dataclasses.replace(inc, arc_ends=inc.arc_ends.clone(), node_start=inc.node_start.clone(),
+                                       node_entry=inc.node_entry.clone())
 
         with torch.no_grad():
             sel["kernel_ms"] = graph_ms([lambda: I.incidence_select(state, inc)])
-            copies = [(state.clone(), copy_pairs()) for _ in range(cold_copies(sel_bytes))]
+            copies = [(state.clone(), copy_index()) for _ in range(cold_copies(sel_bytes))]
             sel["kernel_cold_ms"] = graph_ms([lambda o=o: I.incidence_select(*o) for o in copies])
             sel["cold_copies"] = len(copies)
-            sel["plain_ms"] = graph_ms([lambda: I._incidence_select_plain(state, inc)])
+            sel["plain_ms"] = graph_ms([lambda: I._incidence_select_rows(state, inc.arc_ends, inc.n_arc_tiles)])
             # two gathers, a yardstick only
             sel["library_ms"] = graph_ms([lambda: (torch.index_select(state, 0, src_t),
                                                    torch.index_select(state, 0, dst_t))])
@@ -1655,6 +1732,7 @@ def main():
     src_np, dst_np = b_arc_cpu.arc_src.numpy(), b_arc_cpu.arc_dst.numpy()
     sel_res, scatter_res = check_incidence(b_arc.arc_inc, src_np, dst_np, "bench_arc", timed=True)
     check_incidence(b_arc.arc_inc, src_np, dst_np, "bench_arc_d24", timed=False, d=24)
+    check_incidence(b_arc.arc_inc, src_np, dst_np, "bench_arc_d3", timed=False, d=3)
     sel_big, scatter_big = check_incidence(spread_inc, spread_src, spread_dst, "above_10240_pairs", timed=True)
     ragged_arc = as_arc_focus(ragged, seed=7)
     b_ragged_arc = from_graph_object(GraphObject.merge(ragged_arc, "a", "average"), slot_pack=128,
@@ -1747,14 +1825,14 @@ def main():
                                                     strip_dtype="float32", device="cuda"))
 
     # the arc artifact traced on 2 molecules serves 32 in the same template:
-    # the live pair count is an input of the program, not a constant; a
-    # select that stopped at the template's count would leave the
-    # supervised rows that the later pairs feed at zero
+    # the select's arc-major index is an input of the program, not a
+    # constant; a select that kept the template's index would leave the
+    # supervised rows that the later (host-side) pairs feed wrong
     arc_small, arc_full = arc_request(sample[:2], 5), arc_request(sample[:32], 6)
     inc, lo = arc_full.arc_inc, arc_small.arc_inc.n_live
     assert inc.n_live > lo
-    past = (inc.f_arc_tile[lo:].long()[:, None] * 128 + torch.arange(128, device="cuda"))[inc.f_cols_src[lo:] >= 0]
-    assert arc_full.output_row_mask[past].any()
+    past = (inc.f_arc_tile[lo:].long()[:, None] * 128 + torch.arange(128))[inc.f_cols_src[lo:] >= 0]
+    assert arc_full.output_row_mask[past.to("cuda")].any()
     arc_launches = {"strip_matmul": 4, "incidence_select": 1}
     export_launches = export_phase([("flagship", model, [b_bench], {"strip_matmul": 4}),
                                     ("arc", arc_model, [b_arc], arc_launches),

@@ -1,10 +1,9 @@
-// Arc-row select and its transpose through the union incidence pairs, the
-// arc-focused readout and its gradient:
+// Arc-row select and its transpose, the arc-focused readout and its
+// gradient:
 //
-//   select  (forward):  y_src[128 at + r] = state[128 nt + cols_src[p, r]]
-//                       y_dst[128 at + r] = state[128 nt + cols_dst[p, r]]
-//                       for every pair p = (at, nt) and row r with cols >= 0;
-//                       rows no pair touches are zero;
+//   select  (forward):  y_src[a] = state[arc_ends[a, 0]],
+//                       y_dst[a] = state[arc_ends[a, 1]]   for a < n_arcs,
+//                       rows n_arcs .. a_pad zero;
 //   scatter (backward): out[n] = sum over arc rows a < n_rows of
 //                       [arc_src[a] == n] ct_src[a] + [arc_dst[a] == n] ct_dst[a],
 //                       the terms in the order of the node-major index:
@@ -17,24 +16,32 @@
 // _fused_call from incidence_select_fused) become gnn_incidence_select;
 // _bwd_kernel (incidence_scatter_xla) and _fused_kernel with bwd=True
 // (incidence_scatter_fused) become gnn_incidence_scatter.  The TPU rebuilt a
-// 0/1 one-hot from the cols and ran it through the matrix unit; here the
-// select is a copy and the scatter a segmented sum, one kernel for any pair
-// count (there is no VMEM pair budget to fall back from).
+// 0/1 one-hot from the (arc tile, node tile) pairs' cols and ran it through
+// the matrix unit; here the select is a row copy through an arc-major index
+// and the scatter a segmented sum through a node-major one, one kernel for
+// any pair count (there is no VMEM pair budget to fall back from).  Neither
+// reads the pairs.
 //
-// What bounds both on an H100: bytes.  The select reads the (N, d) state and
-// the (B, 128) i32 cols of both endpoints and writes two (A_pad, d) f32
-// arrays.  The scatter reads the two (A, d) cotangents and the node index
-// (N + 1 offsets, 2 A entries) and writes the (N, d) output.  There is no
-// arithmetic to speak of (the scatter adds each cotangent row once).
+// What bounds both on an H100: bytes.  The select reads the (N, d) state
+// (each node row at least once, more often from L2) and the (n_arcs, 2) i32
+// index, and writes two (a_pad, d) f32 arrays.  The scatter reads the two
+// (A, d) cotangents and the node index (N + 1 offsets, 2 A entries) and
+// writes the (N, d) output.  There is no arithmetic to speak of (the
+// scatter adds each cotangent row once).
 //
-// Select design: one block per arc tile walks its run of pairs
-// f_start[j] .. f_start[j+1].  Per pair it stages the two cols rows in shared
-// memory, then its threads copy node rows into the tile's 2 x 128 output
-// rows, VEC floats (16 bytes where d allows) per load: consecutive threads
-// take consecutive words of one row, then the next row, so the writes are
-// one contiguous run per tile.  A copy is exact, bit for bit, -0.0 and
-// subnormals included.  A per-row flag in shared memory records which rows a
-// pair wrote; the rest are zeroed at the end, so the output needs no memset.
+// Select design: one thread per (output, arc row, vector) of both outputs,
+// VEC floats (16 bytes where d allows) per load: a group of nv = d / VEC
+// consecutive threads owns one output row; they read the row's node from
+// the index (one broadcast), then vector v of that node's state row.
+// Consecutive threads write consecutive words, so each output is one
+// contiguous run; rows past n_arcs are written as zero, so the outputs
+// need no memset.  The work is 2 * a_pad * nv vectors, whatever the pair
+// count; no shared memory, no barriers.  A copy is exact, bit for bit,
+// -0.0 and subnormals included.  (The pair walk this replaced gave a block
+// to each arc tile, staged each of its pairs' cols behind two barriers and
+// skipped the -1 entries of 256 * nv items per pair: pairs * 256 * nv work,
+// ~6x the copy at the bench's pair count, and the cols weighed half the
+// output.)
 //
 // Scatter design: the node-major index (node_start, node_entry, built on the
 // host with the pairs) lists each node row's incident entries e = 2 a + s,
@@ -52,10 +59,8 @@
 // from run to run.  Entries of arc rows >= n_rows (the cotangents' row
 // count) add nothing.
 //
-// The select walks no pair from n_live on: those are inert padding (all cols
-// -1).  n_live is read on the device, from the one-element array the pairs carry:
-// a program saved by torch.export takes it from each batch it is called
-// with, never from the batch it was traced on.
+// Both indices are inputs of every call: a program saved by torch.export
+// takes them from each batch it is called with.
 //
 // Entries: gnn_incidence_select and gnn_incidence_scatter, plain C functions
 // bound with ctypes.  Each launches on the caller's stream, allocates
@@ -66,7 +71,6 @@
 
 namespace {
 
-constexpr int TILE = 128;
 constexpr int SELECT_THREADS = 256;
 constexpr int SCATTER_THREADS = 256;
 
@@ -77,50 +81,25 @@ template <> struct Vec<4> { using T = float4; };
 
 template <int VEC>
 __global__ void __launch_bounds__(SELECT_THREADS) incidence_select_kernel(
-    const float* __restrict__ state, const int* __restrict__ f_start, const int* __restrict__ f_node_tile,
-    const int* __restrict__ f_cols_src, const int* __restrict__ f_cols_dst, float* __restrict__ y_src,
-    float* __restrict__ y_dst, int d, const int* __restrict__ n_live) {
+    const float* __restrict__ state, const int* __restrict__ arc_ends, float* __restrict__ y_src,
+    float* __restrict__ y_dst, int nv, int n_arcs, long n_items) {
   using V = typename Vec<VEC>::T;
-  __shared__ int cols[2][TILE];
-  __shared__ int hit[2][TILE];
-  const int j = blockIdx.x;
-  const int nv = d / VEC;  // vectors per row
-  const int items = 2 * TILE * nv;
-  const long row0 = static_cast<long>(j) * TILE;
-  const V* src = reinterpret_cast<const V*>(state);
-  V* out[2] = {reinterpret_cast<V*>(y_src), reinterpret_cast<V*>(y_dst)};
-
-  for (int i = threadIdx.x; i < 2 * TILE; i += SELECT_THREADS) hit[i / TILE][i % TILE] = 0;
-  const int p_end = min(f_start[j + 1], *n_live);
-  for (int p = f_start[j]; p < p_end; ++p) {
-    __syncthreads();  // the previous pair's cols are read out
-    for (int i = threadIdx.x; i < 2 * TILE; i += SELECT_THREADS) {
-      const int e = i / TILE, r = i % TILE;
-      const int c = (e == 0 ? f_cols_src : f_cols_dst)[static_cast<long>(p) * TILE + r];
-      cols[e][r] = c;
-      if (c >= 0) hit[e][r] = 1;
-    }
-    __syncthreads();
-    const long node0 = static_cast<long>(f_node_tile[p]) * TILE;
-    for (int i = threadIdx.x; i < items; i += SELECT_THREADS) {
-      const int e = i / (TILE * nv);
-      const int rem = i - e * TILE * nv;
-      const int r = rem / nv, v = rem - r * nv;
-      const int c = cols[e][r];
-      if (c >= 0) out[e][(row0 + r) * nv + v] = src[(node0 + c) * nv + v];
-    }
-  }
-  __syncthreads();
-  V zero;
-  float* zf = reinterpret_cast<float*>(&zero);
+  const long t = static_cast<long>(blockIdx.x) * SELECT_THREADS + threadIdx.x;
+  if (t >= 2 * n_items) return;
+  const int e = t >= n_items;  // 0: source output, 1: destination output
+  const long i = t - e * n_items;
+  const long row = i / nv;
+  const int v = static_cast<int>(i - row * nv);
+  V x;
+  if (row < n_arcs) {
+    const long node = __ldg(arc_ends + 2 * row + e);
+    x = __ldg(reinterpret_cast<const V*>(state) + node * nv + v);
+  } else {
+    float* xf = reinterpret_cast<float*>(&x);
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) zf[k] = 0.f;
-  for (int i = threadIdx.x; i < items; i += SELECT_THREADS) {
-    const int e = i / (TILE * nv);
-    const int rem = i - e * TILE * nv;
-    const int r = rem / nv, v = rem - r * nv;
-    if (!hit[e][r]) out[e][(row0 + r) * nv + v] = zero;
+    for (int j = 0; j < VEC; ++j) xf[j] = 0.f;
   }
+  reinterpret_cast<V*>(e ? y_dst : y_src)[i] = x;
 }
 
 template <int VEC>
@@ -178,17 +157,17 @@ __global__ void __launch_bounds__(SCATTER_THREADS) incidence_scatter_kernel(
 
 extern "C" {
 
-int gnn_incidence_select(const void* state, const void* f_start, const void* f_node_tile, const void* f_cols_src,
-                         const void* f_cols_dst, void* y_src, void* y_dst, int d, int n_arc_tiles,
-                         const void* n_live, int vec, void* stream) {
-  if (d < 1 || n_arc_tiles < 1 || d % vec) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n_arc_tiles);
+int gnn_incidence_select(const void* state, const void* arc_ends, void* y_src, void* y_dst, int d, int n_arcs,
+                         int a_pad, int vec, void* stream) {
+  if (d < 1 || n_arcs < 0 || a_pad < 1 || n_arcs > a_pad || d % vec) return static_cast<int>(cudaErrorInvalidValue);
+  const int nv = d / vec;
+  const long n_items = static_cast<long>(a_pad) * nv;
+  const dim3 grid(static_cast<unsigned>((2 * n_items + SELECT_THREADS - 1) / SELECT_THREADS));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto args = [&](auto kernel) {
-    kernel<<<grid, SELECT_THREADS, 0, s>>>(
-        static_cast<const float*>(state), static_cast<const int*>(f_start), static_cast<const int*>(f_node_tile),
-        static_cast<const int*>(f_cols_src), static_cast<const int*>(f_cols_dst), static_cast<float*>(y_src),
-        static_cast<float*>(y_dst), d, static_cast<const int*>(n_live));
+    kernel<<<grid, SELECT_THREADS, 0, s>>>(static_cast<const float*>(state), static_cast<const int*>(arc_ends),
+                                           static_cast<float*>(y_src), static_cast<float*>(y_dst), nv, n_arcs,
+                                           n_items);
   };
   switch (vec) {
     case 4: args(incidence_select_kernel<4>); break;

@@ -51,12 +51,12 @@ _ENTRIES = {
     "fused_unfold": {"gnn_fused_unfold_t": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "fused_unfold_rm": {"gnn_fused_unfold": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]},
     "incidence": {
-        "gnn_incidence_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+        "gnn_incidence_select": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "gnn_incidence_scatter": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     },
     "qbcsr": {
-        "gnn_qbcsr_matmul": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "gnn_qbcsr_matmul_t": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "gnn_qbcsr_matmul": [_P] * 10 + [_I, _I, _I, _P],
+        "gnn_qbcsr_matmul_t": [_P] * 10 + [_I, _I, _I, _P],
     },
     "ring": {
         "gnn_ring_create": [_I, _I, _S, _P, ctypes.POINTER(_P), ctypes.c_char_p],

@@ -17,15 +17,24 @@ to bf16 multiply the state rounded to bf16 and sum in f32, as JAX's
 ``QuantBcsr`` stores the blocks as an int8 0/1 mask with one f32 scale per
 (block, destination column), or as bf16 weights: the counterpart of the JAX
 package's quantised BCSR, whose per-block products are a Pallas kernel.
-Here the whole ``Mᵀ·state`` (gather, products, sum per destination tile) is
-one CUDA kernel per direction (``csrc/qbcsr.cu``): ``qbcsr_matmul`` walks
-each destination tile's blocks through ``row_ptr``, and its backward
+Beside the dense ``mask`` (which the JAX parity and the dense references
+read) it carries each block's nonzero entries as two compressed lists,
+built on the host by ``quantize_bcsr``: by destination column (the
+forward's) and by source row (the backward's), with the bf16 weights in
+each order.  The whole ``Mᵀ·state`` (gather, products, sum per destination
+tile) is one CUDA kernel per direction (``csrc/qbcsr.cu``), and neither
+reads a dense block: ``qbcsr_matmul`` walks each destination tile's blocks
+through ``row_ptr`` and, per block, each column's list; its backward
 ``qbcsr_matmul_t`` walks each source tile's blocks through ``src_order`` /
-``src_row_ptr``, reading the forward blocks transposed.  So no transposed
-copy of the operator is stored (the JAX package keeps one, ``mask_t``).  On
-a CPU tensor each wrapper runs its plain PyTorch version.  The forward is
-also the custom operator ``gnnkeras_tpu_torch::qbcsr_matmul``, which an
-exported program calls.
+``src_row_ptr`` and, per block, each row's list.  So no transposed copy of
+the operator is stored (the JAX package keeps one, ``mask_t``).  On a CPU
+tensor each wrapper runs its plain PyTorch version, a walk of the same
+lists (``_qbcsr_list_matmul_plain``, ``_qbcsr_list_matmul_t_plain``);
+``_qbcsr_matmul_plain`` and ``_qbcsr_matmul_t_plain`` compute the same from
+the dense mask, independent references.  The dense mask goes to the card
+with the operator (``to()`` moves every tensor); no kernel reads it.  The
+forward is also the custom operator ``gnnkeras_tpu_torch::qbcsr_matmul``,
+which an exported program calls with each batch's lists.
 """
 
 from __future__ import annotations
@@ -233,7 +242,15 @@ class QuantBcsr:
     row_ptr[j+1]`` are destination tile j's blocks; ``src_order`` lists the
     blocks sorted (stably) by source tile and ``src_row_ptr`` delimits each
     source tile's run in it, for the backward, which reads the same blocks
-    transposed."""
+    transposed.
+
+    The kernels read the nonzero entries of ``mask`` as lists instead.
+    Block b's entries are ``nz_start[b] .. nz_start[b+1]`` of each list.
+    By destination column (the forward's): column c's entries are
+    ``col_start[b, c] .. col_start[b, c+1]`` after ``nz_start[b]``, their
+    source rows ``col_rows`` ascending, their bf16 weights ``col_weights``
+    (None for the int8 mask, whose entries are 1).  By source row (the
+    backward's) likewise: ``row_start``, ``row_cols``, ``row_weights``."""
 
     mask: torch.Tensor  # (B, T, T) int8 or bf16
     scale: Optional[torch.Tensor]  # (B, T) f32 or None
@@ -242,6 +259,13 @@ class QuantBcsr:
     row_ptr: torch.Tensor  # (n_dst_tiles + 1,) i32
     src_order: torch.Tensor  # (B,) i32
     src_row_ptr: torch.Tensor  # (n_src_tiles + 1,) i32
+    nz_start: torch.Tensor  # (B + 1,) i32 each block's first entry in both lists
+    col_start: torch.Tensor  # (B, T + 1) i16 block-local offsets of each destination column
+    col_rows: torch.Tensor  # (nnz,) u8 source row of each entry, by (block, column, row)
+    col_weights: Optional[torch.Tensor]  # (nnz,) bf16 in col_rows' order, or None (int8)
+    row_start: torch.Tensor  # (B, T + 1) i16 block-local offsets of each source row
+    row_cols: torch.Tensor  # (nnz,) u8 destination column of each entry, by (block, row, column)
+    row_weights: Optional[torch.Tensor]  # (nnz,) bf16 in row_cols' order, or None (int8)
     n_src_tiles: int
     n_dst_tiles: int
     tile: int
@@ -267,13 +291,51 @@ def _block_index(src_tile: torch.Tensor, dst_tile: torch.Tensor, n_src: int, n_d
     return row_ptr, src_order.to(i32), src_row_ptr
 
 
+def _entry_lists(mask: torch.Tensor) -> dict:
+    """The per-block nonzero lists of a (B, T, T) int8 0/1 or bf16 mask on
+    the host, as the ``QuantBcsr`` fields ``nz_start``, ``col_start``,
+    ``col_rows``, ``col_weights``, ``row_start``, ``row_cols`` and
+    ``row_weights``.  An entry is nonzero where ``mask`` is; the weights are
+    the mask's own bf16 values (None for int8)."""
+    b, t = int(mask.shape[0]), int(mask.shape[1])
+    # NumPy compares int8 faster than torch does; it has no bf16
+    nz = mask.numpy() != 0 if mask.dtype == torch.int8 else (mask != 0).numpy()
+    flat = np.flatnonzero(nz)  # by (block, row, column)
+    blk, rest = np.divmod(flat, t * t)
+    row, col = np.divmod(rest, t)
+    if len(blk) >= 2**31:
+        raise ValueError(f"{len(blk)} nonzero entries: the lists' offsets are int32")
+    by_col = np.argsort(blk * t + col, kind="stable")  # by (block, column, row)
+
+    def starts(counts):
+        out = np.zeros((b, t + 1), np.int16)  # at most T·T = 16,384 a block
+        np.cumsum(counts.reshape(b, t), axis=1, out=out[:, 1:])
+        return torch.from_numpy(out)
+
+    nz_start = np.zeros(b + 1, np.int32)
+    np.cumsum(np.bincount(blk, minlength=b), out=nz_start[1:])
+    weights = None
+    if mask.dtype == torch.bfloat16:
+        weights = mask[torch.from_numpy(blk), torch.from_numpy(row), torch.from_numpy(col)]
+    return dict(
+        nz_start=torch.from_numpy(nz_start),
+        col_start=starts(np.bincount(blk * t + col, minlength=b * t)),
+        col_rows=torch.from_numpy(row[by_col].astype(np.uint8)),
+        col_weights=None if weights is None else weights[torch.from_numpy(by_col)].contiguous(),
+        row_start=starts(np.bincount(blk * t + row, minlength=b * t)),
+        row_cols=torch.from_numpy(col.astype(np.uint8)),
+        row_weights=weights,
+    )
+
+
 def quantize_bcsr(m: Optional[BcsrMatrix], dtype="int8", device=None) -> Optional[QuantBcsr]:
     """Host-side quantisation of a built operator, placed on ``device``
     (default: ``m``'s).  ``int8`` needs the column-constant factorisation
     (sum/normalized/average over deduplicated arcs) and falls back to bf16
     weights, with a warning, where it does not hold; ``bfloat16`` stores the
     weights.  The block list is padded to a multiple of 16 with zero blocks
-    at the last destination tile."""
+    at the last destination tile.  The kernels' nonzero lists are built
+    here too, from the padded mask."""
     if m is None:
         return None
     if str(dtype) not in ("int8", "bfloat16"):
@@ -308,9 +370,10 @@ def quantize_bcsr(m: Optional[BcsrMatrix], dtype="int8", device=None) -> Optiona
         src_tile = torch.cat([src_tile, src_tile.new_zeros(extra)])
         dst_tile = torch.cat([dst_tile, dst_tile.new_full((extra,), m.n_dst_tiles - 1)])
     row_ptr, src_order, src_row_ptr = _block_index(src_tile, dst_tile, m.n_src_tiles, m.n_dst_tiles)
+    mask_t = mask_t.contiguous()
     return QuantBcsr(
-        mask=mask_t.contiguous(), scale=scale_t, src_tile=src_tile.contiguous(), dst_tile=dst_tile.contiguous(),
-        row_ptr=row_ptr, src_order=src_order, src_row_ptr=src_row_ptr,
+        mask=mask_t, scale=scale_t, src_tile=src_tile.contiguous(), dst_tile=dst_tile.contiguous(),
+        row_ptr=row_ptr, src_order=src_order, src_row_ptr=src_row_ptr, **_entry_lists(mask_t),
         n_src_tiles=m.n_src_tiles, n_dst_tiles=m.n_dst_tiles, tile=m.tile,
     ).to(device)
 
@@ -318,7 +381,8 @@ def quantize_bcsr(m: Optional[BcsrMatrix], dtype="int8", device=None) -> Optiona
 def pad_qbcsr(qm: Optional[QuantBcsr], n_blocks: int) -> Optional[QuantBcsr]:
     """``pad_bcsr`` for quantised operators: zero blocks at the last
     destination tile up to ``n_blocks`` rounded up to a multiple of 16; the
-    walk indices are rebuilt on the operator's device."""
+    walk indices are rebuilt on the operator's device, and the nonzero
+    lists get empty blocks."""
     if qm is None:
         return None
     n_blocks = -(-max(int(n_blocks), 1) // _QB_KB) * _QB_KB
@@ -329,9 +393,12 @@ def pad_qbcsr(qm: Optional[QuantBcsr], n_blocks: int) -> Optional[QuantBcsr]:
     src_tile = torch.cat([qm.src_tile, qm.src_tile.new_zeros(e)])
     dst_tile = torch.cat([qm.dst_tile, qm.dst_tile.new_full((e,), qm.n_dst_tiles - 1)])
     row_ptr, src_order, src_row_ptr = _block_index(src_tile, dst_tile, qm.n_src_tiles, qm.n_dst_tiles)
+    # the padding blocks hold no entries: their offsets repeat the end
+    nz_start = torch.cat([qm.nz_start, qm.nz_start[-1:].expand(e)])
     return dataclasses.replace(
         qm, mask=zpad(qm.mask), scale=None if qm.scale is None else zpad(qm.scale), src_tile=src_tile,
-        dst_tile=dst_tile, row_ptr=row_ptr, src_order=src_order, src_row_ptr=src_row_ptr,
+        dst_tile=dst_tile, row_ptr=row_ptr, src_order=src_order, src_row_ptr=src_row_ptr, nz_start=nz_start,
+        col_start=zpad(qm.col_start), row_start=zpad(qm.row_start),
     )
 
 
@@ -361,7 +428,48 @@ def _qbcsr_matmul_t_plain(ct, mask, scale, src_tile, dst_tile, n_src: int) -> to
     return out.permute(1, 0, 2).reshape(d, n_src * TILE)
 
 
-_QMASK_KIND = {torch.int8: 0, torch.bfloat16: 2}
+def _entry_groups(nz_start: torch.Tensor, starts: torch.Tensor, n_entries: int) -> torch.Tensor:
+    """``block·T + c`` for each entry of a list whose block-local offsets by
+    ``c`` (a column or a row) are ``starts``: the last (block, c) whose
+    global offset is at most the entry's.  No host sync, so the walks run
+    inside a CUDA graph."""
+    first = (nz_start[:-1, None].long() + starts[:, :TILE].long()).reshape(-1)  # non-decreasing
+    k = torch.arange(n_entries, device=first.device)
+    return torch.searchsorted(first, k, right=True) - 1
+
+
+def _qbcsr_list_matmul_plain(x, scale, col_weights, src_tile, dst_tile, nz_start, col_start, col_rows,
+                             n_dst: int) -> torch.Tensor:
+    """The forward kernel's plain version, a walk of the column lists:
+    per block and destination column c, ``part = Σ x[:, 128·src + r]·w``
+    over the column's entries (w = 1 for the int8 mask), then ``part ·
+    scale[b, c]`` summed into ``out[:, 128·dst + c]``."""
+    d, n_blocks = x.shape[0], src_tile.shape[0]
+    bc = _entry_groups(nz_start, col_start, col_rows.shape[0])
+    b = bc // TILE
+    vals = x[:, src_tile.long()[b] * TILE + col_rows.long()]  # (d, nnz)
+    if col_weights is not None:
+        vals = vals * col_weights.to(x.dtype)
+    part = x.new_zeros((d, n_blocks * TILE)).index_add_(1, bc, vals)
+    if scale is not None:
+        part = part * scale.reshape(-1)
+    cols = (dst_tile.long()[:, None] * TILE + torch.arange(TILE, device=x.device)).reshape(-1)
+    return x.new_zeros((d, n_dst * TILE)).index_add_(1, cols, part)
+
+
+def _qbcsr_list_matmul_t_plain(ct, scale, row_weights, src_tile, dst_tile, nz_start, row_start, row_cols,
+                               n_src: int) -> torch.Tensor:
+    """The backward kernel's plain version, a walk of the row lists: per
+    block and source row r, ``out[:, 128·src + r] += Σ ct[:, 128·dst + c] ·
+    scale[b, c] · w`` over the row's entries."""
+    br = _entry_groups(nz_start, row_start, row_cols.shape[0])
+    b, r, c = br // TILE, br % TILE, row_cols.long()
+    vals = ct[:, dst_tile.long()[b] * TILE + c]  # (d, nnz)
+    if scale is not None:
+        vals = vals * scale[b, c]
+    if row_weights is not None:
+        vals = vals * row_weights.to(ct.dtype)
+    return ct.new_zeros((ct.shape[0], n_src * TILE)).index_add_(1, src_tile.long()[b] * TILE + r, vals)
 
 
 def _check_qbcsr(name: str, x: torch.Tensor, mask, scale, n_in_tiles: int) -> None:
@@ -375,39 +483,43 @@ def _check_qbcsr(name: str, x: torch.Tensor, mask, scale, n_in_tiles: int) -> No
         raise ValueError(f"{name}: scale {tuple(scale.shape)} must be {(mask.shape[0], TILE)}")
 
 
-def _launch_qbcsr(name: str, x, mask, scale, tile_ids, order, ptr, n_out: int) -> torch.Tensor:
+def _launch_qbcsr(name: str, x, scale, weights, tile_ids, order, ptr, nz_start, starts, ids,
+                  n_out: int) -> torch.Tensor:
     """One launch of ``gnn_{name}`` on the card, counted in
     ``kernels.LAUNCHES[name]``, or an error.  ``tile_ids`` are the tiles the
     kernel reads the state from (src for the forward, dst for the backward),
     ``order`` the walk order (None: the blocks' own), ``ptr`` the per-output
-    -tile run offsets."""
+    -tile run offsets; ``nz_start`` / ``starts`` / ``ids`` / ``weights`` the
+    direction's nonzero lists (the int8 mask has a scale and no weights,
+    bf16 weights no scale)."""
     from gnnkeras_tpu_torch import kernels
 
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     d = x.shape[0]
-    operands = [t for t in (x, mask, scale, tile_ids, order, ptr) if t is not None]
+    operands = [t for t in (x, scale, weights, tile_ids, order, ptr, nz_start, starts, ids) if t is not None]
     if any(o.device != x.device for o in operands):
         raise ValueError(f"{name}: operands on different devices")
     if not all(o.is_contiguous() for o in operands):
         raise ValueError(f"{name}: operands must be contiguous")
     if x.dtype != torch.float32 or (scale is not None and scale.dtype != torch.float32):
         raise ValueError(f"{name}: state and scale must be float32")
-    if mask.dtype not in _QMASK_KIND:
-        raise ValueError(f"{name}: unsupported block dtype {mask.dtype}")
-    if mask.data_ptr() % 4:
-        raise ValueError(f"{name}: the blocks must start on a 4-byte boundary")
-    if any(t.dtype != torch.int32 for t in (tile_ids, ptr) + (() if order is None else (order,))):
+    if (scale is None) == (weights is None) or (weights is not None and weights.dtype != torch.bfloat16):
+        raise ValueError(f"{name}: the lists need either a scale (int8) or bf16 weights")
+    if any(t.dtype != torch.int32 for t in (tile_ids, ptr, nz_start) + (() if order is None else (order,))):
         raise ValueError(f"{name}: tile ids and offsets must be int32")
+    if starts.dtype != torch.int16 or tuple(starts.shape) != (tile_ids.shape[0], TILE + 1) or ids.dtype != torch.uint8:
+        raise ValueError(f"{name}: lists must be (blocks, 129) int16 offsets and uint8 ids")
     if d % 8:
         raise ValueError(f"{name}: feature rows {d} must be a multiple of 8")
     out = x.new_empty((d, n_out * TILE))
+    ptr_of = lambda t: None if t is None else t.data_ptr()
     fn = getattr(kernels.load("qbcsr"), f"gnn_{name}")
     with torch.cuda.device(x.device):
         err = fn(
-            x.data_ptr(), mask.data_ptr(), _QMASK_KIND[mask.dtype], None if scale is None else scale.data_ptr(),
-            tile_ids.data_ptr(), None if order is None else order.data_ptr(), ptr.data_ptr(), out.data_ptr(),
-            d, x.shape[1] // TILE, n_out, kernels.stream_of(x),
+            x.data_ptr(), ptr_of(scale), ptr_of(weights), tile_ids.data_ptr(), ptr_of(order), ptr.data_ptr(),
+            nz_start.data_ptr(), starts.data_ptr(), ids.data_ptr(), out.data_ptr(), d, x.shape[1] // TILE, n_out,
+            kernels.stream_of(x),
         )
     kernels.check(err, name)
     kernels.LAUNCHES[name] += 1
@@ -415,18 +527,21 @@ def _launch_qbcsr(name: str, x, mask, scale, tile_ids, order, ptr, n_out: int) -
 
 
 @torch.library.custom_op("gnnkeras_tpu_torch::qbcsr_matmul", mutates_args=())
-def _qbcsr_matmul_op(x: torch.Tensor, mask: torch.Tensor, scale: Optional[torch.Tensor], src_tile: torch.Tensor,
-                     dst_tile: torch.Tensor, row_ptr: torch.Tensor, n_dst: int) -> torch.Tensor:
+def _qbcsr_matmul_op(x: torch.Tensor, scale: Optional[torch.Tensor], col_weights: Optional[torch.Tensor],
+                     src_tile: torch.Tensor, dst_tile: torch.Tensor, row_ptr: torch.Tensor, nz_start: torch.Tensor,
+                     col_start: torch.Tensor, col_rows: torch.Tensor, n_dst: int) -> torch.Tensor:
     """The forward as one operator of ``torch.library``, so that
-    ``torch.export`` records it as one node: the kernel on the card, the
-    plain version on the CPU."""
+    ``torch.export`` records it as one node that takes the lists from each
+    batch: the kernel on the card, the plain list walk on the CPU."""
     if x.device.type == "cpu":
-        return _qbcsr_matmul_plain(x, mask, scale, src_tile, dst_tile, n_dst)
-    return _launch_qbcsr("qbcsr_matmul", x, mask, scale, src_tile, None, row_ptr, n_dst)
+        return _qbcsr_list_matmul_plain(x, scale, col_weights, src_tile, dst_tile, nz_start, col_start, col_rows,
+                                        n_dst)
+    return _launch_qbcsr("qbcsr_matmul", x, scale, col_weights, src_tile, None, row_ptr, nz_start, col_start,
+                         col_rows, n_dst)
 
 
 @_qbcsr_matmul_op.register_fake
-def _(x, mask, scale, src_tile, dst_tile, row_ptr, n_dst):
+def _(x, scale, col_weights, src_tile, dst_tile, row_ptr, nz_start, col_start, col_rows, n_dst):
     return x.new_empty((x.shape[0], n_dst * TILE))
 
 
@@ -435,18 +550,20 @@ def qbcsr_matmul(x: torch.Tensor, qm: QuantBcsr) -> torch.Tensor:
     columns) → (d, n_dst_tiles·128): kernel row 8's forward (not
     differentiable; ``qbcsr_aggregate_t`` is)."""
     _check_qbcsr("qbcsr_matmul", x, qm.mask, qm.scale, qm.n_src_tiles)
-    return _qbcsr_matmul_op(x, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.row_ptr, qm.n_dst_tiles)
+    return _qbcsr_matmul_op(x, qm.scale, qm.col_weights, qm.src_tile, qm.dst_tile, qm.row_ptr, qm.nz_start,
+                            qm.col_start, qm.col_rows, qm.n_dst_tiles)
 
 
 def qbcsr_matmul_t(ct: torch.Tensor, qm: QuantBcsr) -> torch.Tensor:
     """The backward of ``qbcsr_matmul``: ``M·ct``, (d, n_dst_tiles·128) →
-    (d, n_src_tiles·128), the same blocks read transposed with the scale on
-    the input columns."""
+    (d, n_src_tiles·128), the same blocks read transposed (through the row
+    lists) with the scale on the input columns."""
     _check_qbcsr("qbcsr_matmul_t", ct, qm.mask, qm.scale, qm.n_dst_tiles)
     if ct.device.type == "cpu":
-        return _qbcsr_matmul_t_plain(ct, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.n_src_tiles)
-    return _launch_qbcsr("qbcsr_matmul_t", ct, qm.mask, qm.scale, qm.dst_tile, qm.src_order, qm.src_row_ptr,
-                         qm.n_src_tiles)
+        return _qbcsr_list_matmul_t_plain(ct, qm.scale, qm.row_weights, qm.src_tile, qm.dst_tile, qm.nz_start,
+                                          qm.row_start, qm.row_cols, qm.n_src_tiles)
+    return _launch_qbcsr("qbcsr_matmul_t", ct, qm.scale, qm.row_weights, qm.dst_tile, qm.src_order,
+                         qm.src_row_ptr, qm.nz_start, qm.row_start, qm.row_cols, qm.n_src_tiles)
 
 
 class _QbcsrMatmul(torch.autograd.Function):

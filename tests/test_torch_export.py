@@ -102,8 +102,8 @@ def _arc_pair_padded(n_graphs, seed, pads):
 
 
 def test_arc_artifact_runs_on_a_batch_with_more_live_pairs(tmp_path):
-    """The live pair count is an input of the program, not a constant of
-    the template: a batch padded to the same pair cap with more live pairs
+    """The select's index is an input of the program, not a constant of
+    the template: a batch padded to the same shapes with more live pairs
     is served in full, as the JAX artifact serves it."""
     # arcs padded to the 32's own arc tiles, so every arc tile holds real arcs
     n_arcs = int(_batch_pair("a", "strip", seed=6, n_graphs=32)[1].arc_mask.sum())
@@ -113,14 +113,14 @@ def test_arc_artifact_runs_on_a_batch_with_more_live_pairs(tmp_path):
     jb2, tb2 = _arc_pair_padded(32, 6, pads)
     inc, lo = tb2.arc_inc, tb.arc_inc.n_live
     assert inc.n_live > lo and inc.n_pairs == tb.arc_inc.n_pairs
-    # the later pairs feed supervised arc rows (the card's select walks them)
+    # the later pairs feed supervised arc rows (the card's select copies them)
     past = (inc.f_arc_tile[lo:].long()[:, None] * 128 + torch.arange(128))[inc.f_cols_src[lo:] >= 0]
     assert tb2.output_row_mask[past].any()
     tserving.export_forward(tm, tb, str(tmp_path / "port"))
     jserving.export_forward(jm, jb, str(tmp_path / "jax"))
     program = torch.export.load(str(tmp_path / "port" / "forward.pt2"))
     select = [n for n in program.graph.nodes if "incidence_select" in str(n.target)]
-    assert len(select) == 1 and all(isinstance(a, torch.fx.Node) for a in select[0].args[:7])
+    assert len(select) == 1 and all(isinstance(a, torch.fx.Node) for a in select[0].args[:2])
     got, mask = tserving.load_exported(str(tmp_path / "port"), device="cpu").call(tb2)
     _, _, want, want_mask, _ = tm.forward(tb2)
     jout, jmask = jserving.load_exported(str(tmp_path / "jax")).call(jb2)

@@ -4,6 +4,8 @@ The card tests carry the ``cuda`` marker and skip where
 ``torch.cuda.is_available()`` is False; on a machine with a card (and no JAX)
 run them with ``python -m pytest tests/test_torch_kernels.py --noconftest``."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -135,9 +137,11 @@ def test_mixed_strip_cpu_wrappers_take_plain_version(storage, slot):
 def test_qbcsr_cpu_wrappers_take_plain_version(storage):
     x, ct, qm = _qbcsr_inputs(storage, n_dst_tiles=5)
     before = dict(kernels.LAUNCHES)
-    want = bcsr._qbcsr_matmul_plain(x, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.n_dst_tiles)
+    want = bcsr._qbcsr_list_matmul_plain(x, qm.scale, qm.col_weights, qm.src_tile, qm.dst_tile, qm.nz_start,
+                                         qm.col_start, qm.col_rows, qm.n_dst_tiles)
     torch.testing.assert_close(bcsr.qbcsr_matmul(x, qm), want, rtol=0, atol=0)
-    want_t = bcsr._qbcsr_matmul_t_plain(ct, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.n_src_tiles)
+    want_t = bcsr._qbcsr_list_matmul_t_plain(ct, qm.scale, qm.row_weights, qm.src_tile, qm.dst_tile, qm.nz_start,
+                                             qm.row_start, qm.row_cols, qm.n_src_tiles)
     torch.testing.assert_close(bcsr.qbcsr_matmul_t(ct, qm), want_t, rtol=0, atol=0)
     # the autograd backward of qbcsr_aggregate_t runs the same wrapper
     x.requires_grad_(True)
@@ -199,8 +203,10 @@ def test_incidence_cpu_wrappers_take_plain_version():
     state = torch.randn(inc.n_node_tiles * 128, 14, generator=g)
     ct = torch.randn(len(src), 14, generator=g)
     before = dict(kernels.LAUNCHES)
-    for got, want in zip(incidence.incidence_select(state, inc), incidence._incidence_select_plain(state, inc)):
-        assert torch.equal(got, want)
+    got_sel = incidence.incidence_select(state, inc)
+    want_rows = incidence._incidence_select_rows(state, inc.arc_ends, inc.n_arc_tiles)
+    for got, want, pairs in zip(got_sel, want_rows, incidence._incidence_select_plain(state, inc)):
+        assert torch.equal(got, want) and torch.equal(got, pairs)
     torch.testing.assert_close(incidence.incidence_scatter(ct, 2 * ct, inc),
                                incidence._incidence_scatter_walk(ct, 2 * ct, inc), rtol=0, atol=0)
     assert kernels.LAUNCHES == before
@@ -285,13 +291,24 @@ def test_qbcsr_kernels_match_plain_on_card(cuda, d, case, storage):
     x, ct, qm = x.to(cuda), ct.to(cuda), qm.to(cuda)
     want = bcsr._qbcsr_matmul_plain(x, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.n_dst_tiles)
     want_t = bcsr._qbcsr_matmul_t_plain(ct, qm.mask, qm.scale, qm.src_tile, qm.dst_tile, qm.n_src_tiles)
+    walk = bcsr._qbcsr_list_matmul_plain(x, qm.scale, qm.col_weights, qm.src_tile, qm.dst_tile, qm.nz_start,
+                                         qm.col_start, qm.col_rows, qm.n_dst_tiles)
+    walk_t = bcsr._qbcsr_list_matmul_t_plain(ct, qm.scale, qm.row_weights, qm.src_tile, qm.dst_tile, qm.nz_start,
+                                             qm.row_start, qm.row_cols, qm.n_src_tiles)
     before = dict(kernels.LAUNCHES)
-    for _ in range(2):  # the second launch finds any shared-memory limit already raised
+    outs = []
+    for _ in range(2):
         got, got_t = bcsr.qbcsr_matmul(x, qm), bcsr.qbcsr_matmul_t(ct, qm)
         torch.cuda.synchronize()
         # f32 sums of a tile's block products in another order
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(got_t, want_t, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got, walk, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got_t, walk_t, rtol=1e-5, atol=1e-5)
+        outs.append((got, got_t))
+    # a fixed sum order and no atomics: the same bits from call to call
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert kernels.LAUNCHES["qbcsr_matmul"] == before["qbcsr_matmul"] + 2
     assert kernels.LAUNCHES["qbcsr_matmul_t"] == before["qbcsr_matmul_t"] + 2
     # the autograd backward of qbcsr_aggregate_t launches the backward kernel
@@ -311,6 +328,15 @@ def test_qbcsr_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         bcsr.qbcsr_matmul(x.double(), qm)
     with pytest.raises(ValueError, match="contiguous"):
         bcsr.qbcsr_matmul(torch.zeros(x.shape[1], x.shape[0], device=cuda).T, qm)
+    # the lists in another type than the kernel reads, or an int8 mask's
+    # lists without its scale
+    with pytest.raises(ValueError, match="int16"):
+        bcsr.qbcsr_matmul(x, dataclasses.replace(qm, col_start=qm.col_start.int()))
+    with pytest.raises(ValueError, match="uint8"):
+        bcsr.qbcsr_matmul_t(ct.to(cuda), dataclasses.replace(qm, row_cols=qm.row_cols.int()))
+    with pytest.raises(ValueError, match="scale"):
+        bcsr._launch_qbcsr("qbcsr_matmul", x, None, None, qm.src_tile, None, qm.row_ptr, qm.nz_start, qm.col_start,
+                           qm.col_rows, qm.n_dst_tiles)
 
 
 @pytest.mark.cuda
@@ -418,6 +444,7 @@ def test_incidence_kernels_match_plain_on_card(cuda, d, case):
     ct_src = torch.randn(len(src), d, generator=g, device=cuda)
     ct_dst = torch.randn(len(src), d, generator=g, device=cuda)
     want_sel = incidence._incidence_select_plain(state, inc)
+    want_rows = incidence._incidence_select_rows(state, inc.arc_ends, inc.n_arc_tiles)
     want_sc = incidence._incidence_scatter_plain(ct_src, ct_dst, inc)
     want_walk = incidence._incidence_scatter_walk(ct_src, ct_dst, inc)
     before = dict(kernels.LAUNCHES)
@@ -426,9 +453,10 @@ def test_incidence_kernels_match_plain_on_card(cuda, d, case):
         y_src, y_dst = incidence.incidence_select(state, inc)
         out = incidence.incidence_scatter(ct_src, ct_dst, inc)
         torch.cuda.synchronize()
-        # a copy: bit for bit
-        assert torch.equal(y_src.view(torch.int32), want_sel[0].view(torch.int32))
-        assert torch.equal(y_dst.view(torch.int32), want_sel[1].view(torch.int32))
+        # a copy: bit for bit, against both plain versions
+        for got, pairs, rows in zip((y_src, y_dst), want_sel, want_rows):
+            assert torch.equal(got.view(torch.int32), pairs.view(torch.int32))
+            assert torch.equal(got.view(torch.int32), rows.view(torch.int32))
         # f32 sums of a node's few incident cotangents in another order
         torch.testing.assert_close(out, want_sc, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(out, want_walk, rtol=1e-5, atol=1e-5)
@@ -456,6 +484,11 @@ def test_incidence_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     ct = torch.zeros(len(src), 6, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         incidence.incidence_scatter(ct.half(), ct.half(), inc)
+    # the arc-major index in another type, or of more arcs than its tiles hold
+    with pytest.raises(ValueError, match="int32"):
+        incidence.incidence_select(state, dataclasses.replace(inc, arc_ends=inc.arc_ends.long()))
+    with pytest.raises(ValueError, match="index"):
+        incidence._incidence_select_op(state, inc.arc_ends, 1)
 
 
 @pytest.mark.cuda
@@ -482,11 +515,12 @@ def test_exported_program_moves_to_the_card_and_calls_the_kernels(cuda, tmp_path
 
 @pytest.mark.cuda
 def test_exported_arc_program_serves_a_batch_with_more_live_pairs(cuda, tmp_path):
-    """The live pair count is a tensor input of the exported program, read
-    by the select kernel on the card: the arc artifact traced on a batch of
-    2 molecules serves a batch of 32 padded to the same shapes in full, its
-    select walking every live pair of the 32.  Against the CPU forward of
-    that batch: f32 sums in another order, rtol 1e-5, atol 1e-6."""
+    """The select's arc-major index is a tensor input of the exported
+    program, read by the select kernel on the card: the arc artifact traced
+    on a batch of 2 molecules serves a batch of 32 padded to the same shapes
+    in full, its select copying every arc row of the 32.  Against the CPU
+    forward of that batch: f32 sums in another order, rtol 1e-5, atol
+    1e-6."""
     from gnnkeras_tpu_torch import GraphObject, export_forward, graphs_to_batch, load_exported
     from gnnkeras_tpu_torch.data.synthetic import arc_gnn, random_molecules
     from gnnkeras_tpu_torch.graph.batch import pad_operators_to_cap
