@@ -10,6 +10,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 1. device and build: the card's name and power limit (nvidia-smi), then the
    CUDA kernels of ``gnnkeras_tpu_torch/csrc`` built with nvcc, all at once;
 2. kernel checks: each kernel (the strip aggregation's forward and backward,
+   each also against a second launch bit for bit,
    the feature-major fused unfold, the row-major fused unfold with bf16 and
    f32 blocks, the arc readout's incidence select and scatter; the select
    bit for bit against its arc-major copy, the pairs' select and the
@@ -237,10 +238,13 @@ def check_strip(op, label, timed, name="strip_matmul", d=16, round_state=False):
     kw = {"round_state": True} if round_state else {}
     with torch.no_grad():
         got = kernel(x, *operands, **kw)
+        again = kernel(x, *operands, **kw)
         want = plain(x, *operands, **kw)
     torch.cuda.synchronize()
     # f32 sums of the same few terms in another order
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    # a fixed sum order: a second launch gives the same bits
+    assert torch.equal(got, again), f"{name} on {label}: two launches differ"
     res = {"phase": "kernel_check", "kernel": name + ("_bf16_state" if round_state else ""), "batch": label,
            "storage": str(op.strip.dtype).replace("torch.", ""), "slot": op.slot,
            "tiles": n // 128, "strip_tiles": int(op.strip.shape[0]),

@@ -18,339 +18,70 @@
 // _strip_matmul_mixed (both regions in one launch): with scale_in=False on
 // strip / blocks (gnn_strip_matmul, the aggregation of strip_aggregate_t)
 // and with scale_in=True on strip_t / blocks_t, their transposes
-// (gnn_strip_matmul_t, the VJP _strip_t_bwd).
+// (gnn_strip_matmul_t, the VJP _strip_t_bwd).  The experiment scripts'
+// compact-strip kernels (scripts/bench_pallas_compact.py _strip_kernel,
+// scripts/bench_strip_blocked.py _blocked_kernel, scripts/bench_strip64.py
+// _kernel and _packed_kernel) run on the bf16-state operator type below.
 //
-// What bounds both on an H100: bytes.  Per tile a launch reads the operator
-// (slot x 128 entries: 4 KiB at slot 32 as an int8 0/1 mask, 16 KiB for a
-// full block, plus 512 B of f32 scale) and d x 128 f32 of state or
-// cotangent, and writes d x 128 f32.  The useful arithmetic is
-// 2 * d * nnz FLOP (a few arcs per node), far below what the f32 cores do
-// in the time the operator takes to stream from HBM.
+// What bounds both on an H100: bytes at 3.35 TB/s.  Per tile a launch reads
+// the operator once (slot x 128 entries: 4 KiB at slot 32 as an int8 0/1
+// mask, 32 KiB for a bf16 block, plus 512 B of f32 scale) and d x 128 f32 of
+// state or cotangent, and writes d x 128 f32.  The f32 fused multiply-adds
+// come close behind: at bench scale (1,085 slot-128 tiles, d 16) 284 M of
+// them, ~8.5 us of the CUDA cores' peak against 15.9 us of bytes (bf16).
 //
-// Forward design: one block per (tile, chunk of DC feature rows), one thread
-// per output column j.  The state chunk (DC x 128 f32, 8 KiB at DC = 16) is
-// staged in shared memory once; each thread walks its operator column: the
-// 128 rows of a full block, or the slot rows of a compact strip, which
-// multiply the state rows of j's slot group (slot * (j / slot) + i).  Each
-// row read is one coalesced 128-byte line across the block, and every
-// operator byte is read from HBM exactly once per launch (DC = d_pad up to
-// 16).  The compact strip is never expanded in memory: its zeros are the
-// rows a thread skips.  The operator is upcast to f32 in registers, the DC
-// accumulators stay in registers, and the per-column scale is applied once
-// in the epilogue, as the TPU kernel does.
+// Numbers: every output is an f32 fused multiply-add chain from 0 over its
+// contraction, in order (r forward, k backward), with the int8 scale on the
+// output columns forward and on the cotangent (one f32 product, as
+// scale_in does) before the chain backward.  That is how the plain version's
+// f32 product sums on the CPU, so the card's forwards and train steps meet
+// the CPU's.  Tensor cores sum a k-step's products in an order of their own,
+// and an answer that is more exact is no nearer: the card-against-CPU checks
+// sit at the f32 noise floor of the 5-iteration forward, where only the
+// CPU's order meets them.  Zero entries leave a chain unchanged, so a
+// compact strip's contraction is its slot group's slot rows only: the block
+// diagonal is never expanded.  No atomics: two launches give the same bits.
 //
-// Backward design: the same grid, one thread per output row i, which must
-// sum along row i of M.  A thread walking a row straight from HBM would make
-// each warp read 32 rows 128 elements apart, so the block first stages the
-// tile's operator rows (slot rows of a strip, 128 of a full block) from HBM
-// into shared memory with coalesced 4-byte row loads, each row padded by one
-// 4-byte word: thread i reads word w of row i % slot at bank
-// (i % slot + w) mod 32, free of bank conflicts, over the words of its slot
-// group's columns.  The scaled cotangent chunk ct[f, 128t + j] * scale[t, j]
-// is staged beside it (the scale multiplies the input in the prologue, as
-// scale_in does).  No second, transposed operator is stored.  Shared memory
-// per block: 16.5 KiB (int8), 32.5 KiB (bf16) or 64.5 KiB (f32) for the
-// operator plus 8 KiB for the chunk at DC = 16; above 48 KiB (f32) the limit
-// is raised once per device.
+// Design, one routine for both directions (tile_fma).  Thread (warp w, lane
+// l) owns two output positions p, p + 1 (p = 64 (w & 1) + 2l: columns j
+// forward, rows i backward) and d / 2 feature rows (half the block's d
+// each), so 2 x d/2 sums in registers.  Per 4 contraction steps it takes 8
+// operator entries from shared memory (forward: 2 entries of each of 4 rows;
+// backward: 16-byte chunks of its 2 rows, 4 to 16 entries each, read along
+// the contraction, so no transposed operator is stored) and one float4 of
+// state per feature row, broadcast over the lanes of a slot group: 8 fused
+// multiply-adds per float4.  int8 entries become f32 exactly by a byte
+// permute and one add.  Operator rows keep their 16-byte chunks
+// XOR-swizzled by row, and the state rows' 32-column groups are 16 B apart,
+// so the loads are free of bank conflicts.
 //
-// No tensor cores in either: a later change can move the products onto mma.
+// Tile stream.  Persistent blocks (as many as fit on the card, at most one a
+// tile) walk the tiles t = blockIdx.x, + gridDim.x, ...  Each tile's operator
+// (contiguous in HBM), state chunk (d rows of 512 B, strided by n) and scale
+// arrive by 16-byte cp.async into a ring of 2-3 stages (whichever keeps more
+// tiles in flight on an SM), so the copies of the next tiles run while this
+// one multiplies.  All of d up to 48 is one chunk of 8, 16, 32 or 48 feature
+// rows (rows past d copied as zeros and not stored): the operator is read
+// once (larger d: chunks of 48, one grid row each).
 //
-// bf16-state variant (mask_kind 3, operator type Bf16State): bf16 weights
+// bf16-state variant (mask kind 3, operator type Bf16State): bf16 weights
 // whose product first rounds the state (forward) or the cotangent (backward)
-// to bf16 (__float2bfloat16_rn) as it is staged, then multiplies in f32.
-// That is what the experiment scripts' compact-strip kernels compute
-// (scripts/bench_pallas_compact.py _strip_kernel, scripts/bench_strip_blocked.py
-// _blocked_kernel, scripts/bench_strip64.py _kernel and _packed_kernel:
-// x.astype(bf16) @ strip), where the model's path lifts the operator to f32
-// and keeps the state.  It is a separate operator type, so the int8, f32 and
-// bf16 instantiations the model runs are compiled exactly as before; it is
-// built for slot-pure operators only (the scripts have no block region).
+// to bf16 (round to nearest even).  That is what the experiment scripts'
+// compact-strip kernels compute (x.astype(bf16) @ strip), where the model's
+// path keeps the state; its products are exact in bf16, so it runs on
+// tensor cores (tile_mma): mma.sync.m16n8k16 with f32 accumulators, the
+// operator by ldmatrix.trans forward and ldmatrix backward, the rounded state
+// as one bf16 plane.  It is built for slot-pure operators only (the scripts
+// have no block region).
 //
 // Entries: gnn_strip_matmul and gnn_strip_matmul_t, plain C functions bound
-// with ctypes.  Each launches on the caller's stream and returns
-// cudaGetLastError().
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+// with ctypes.  Every operand must start on a 16-byte boundary.  Each
+// launches on the caller's stream and returns cudaGetLastError().  The
+// kernels themselves are templates (strip_matmul.cuh), instantiated in eight
+// translation units, one per mask kind and direction (strip_matmul_unit.cu).
+#include "strip_matmul.cuh"
 
 namespace {
-
-constexpr int TILE = 128;
-
-__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// bf16 weights of the bf16-state variant: the same two bytes as
-// __nv_bfloat16, a type of its own so that it instantiates kernels of its own
-struct Bf16State {
-  __nv_bfloat16 w;
-};
-__device__ __forceinline__ float to_f32(Bf16State v) { return __bfloat162float(v.w); }
-
-// The state (forward) or cotangent (backward) value as a tile stages it:
-// unchanged, or rounded to bf16 for the bf16-state variant.
-template <typename MaskT>
-__device__ __forceinline__ float staged(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float staged<Bf16State>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// One tile of the forward: ROWS operator rows (the slot of a compact strip,
-// or 128 for a full block) from ``rows``, each multiplying the state row of
-// thread j's slot group.  ROWS is a compile-time constant, so the walk's
-// trip count and offsets are too.
-template <int DC, int ROWS, typename MaskT, bool SCALED>
-__device__ __forceinline__ void forward_tile(const float* xs, const MaskT* __restrict__ rows,
-                                             const float* __restrict__ scale, float* __restrict__ out, long n,
-                                             int f0, long col, int j) {
-  float acc[DC];
-#pragma unroll
-  for (int f = 0; f < DC; ++f) acc[f] = 0.f;
-  const float* x0 = xs + (ROWS == TILE ? 0 : (j / ROWS) * ROWS);  // row 0 of j's slot group
-  const MaskT* mcol = rows + j;
-#pragma unroll 4
-  for (int i = 0; i < ROWS; ++i) {
-    const float a = to_f32(mcol[i * TILE]);
-#pragma unroll
-    for (int f = 0; f < DC; ++f) acc[f] = fmaf(x0[f * TILE + i], a, acc[f]);
-  }
-  const float s = SCALED ? scale[j] : 1.f;
-#pragma unroll
-  for (int f = 0; f < DC; ++f) out[(f0 + f) * n + col] = SCALED ? acc[f] * s : acc[f];
-}
-
-// Tiles [0, ts) hold (SLOT, 128) strips, tiles [ts, T) full blocks; the
-// branch is uniform over a thread block.  MIXED is false for a slot-pure
-// operator (ts == T): that instantiation has no block region and no branch.
-template <int DC, int SLOT, typename MaskT, bool SCALED, bool MIXED>
-__global__ void __launch_bounds__(TILE) strip_matmul_kernel(
-    const float* __restrict__ x, const MaskT* __restrict__ strip, const float* __restrict__ scale, int ts,
-    const MaskT* __restrict__ blocks, const float* __restrict__ blocks_scale, float* __restrict__ out, long n) {
-  __shared__ float xs[DC * TILE];
-  const int t = blockIdx.x;
-  const int f0 = blockIdx.y * DC;
-  const int j = threadIdx.x;
-  const long col = static_cast<long>(t) * TILE + j;
-
-#pragma unroll
-  for (int f = 0; f < DC; ++f) xs[f * TILE + j] = staged<MaskT>(x[(f0 + f) * n + col]);
-  __syncthreads();
-
-  if (!MIXED || t < ts) {
-    forward_tile<DC, SLOT, MaskT, SCALED>(xs, strip + static_cast<long>(t) * SLOT * TILE,
-                                          SCALED ? scale + static_cast<long>(t) * TILE : nullptr, out, n, f0, col, j);
-  } else {
-    const long tb = t - ts;
-    forward_tile<DC, TILE, MaskT, SCALED>(xs, blocks + tb * TILE * TILE, SCALED ? blocks_scale + tb * TILE : nullptr,
-                                          out, n, f0, col, j);
-  }
-}
-
-// One 4-byte shared-memory word of a staged tile holds 4 int8, 2 bf16 or 1
-// f32 operator entries, lowest address first.
-template <typename MaskT>
-struct Word;
-
-template <>
-struct Word<int8_t> {
-  static constexpr int kValues = 4;
-  __device__ __forceinline__ static float at(uint32_t w, int e) {
-    return static_cast<float>(static_cast<int8_t>((w >> (8 * e)) & 0xffu));
-  }
-};
-
-template <>
-struct Word<__nv_bfloat16> {
-  static constexpr int kValues = 2;
-  __device__ __forceinline__ static float at(uint32_t w, int e) {
-    return __uint_as_float(((w >> (16 * e)) & 0xffffu) << 16);
-  }
-};
-
-template <>
-struct Word<Bf16State> : Word<__nv_bfloat16> {};
-
-template <>
-struct Word<float> {
-  static constexpr int kValues = 1;
-  __device__ __forceinline__ static float at(uint32_t w, int) { return __uint_as_float(w); }
-};
-
-template <typename MaskT>
-__host__ __device__ constexpr int row_words() {
-  return TILE * static_cast<int>(sizeof(MaskT)) / 4;
-}
-
-template <int DC, typename MaskT>
-constexpr size_t smem_bytes_t() {
-  return (static_cast<size_t>(TILE) * (row_words<MaskT>() + 1) + DC * TILE) * 4;
-}
-
-// One tile of the backward: stage its ROWS operator rows, and the cotangent
-// chunk scaled along the contraction axis, then thread tid sums row tid of
-// the expanded block: strip row tid % ROWS over the columns of tid's slot
-// group (all 128 at ROWS = 128).
-template <int DC, int ROWS, typename MaskT, bool SCALED>
-__device__ __forceinline__ void backward_tile(uint32_t* ms, float* cs, const float* __restrict__ ct,
-                                              const MaskT* __restrict__ rows, const float* __restrict__ scale,
-                                              float* __restrict__ out, long n, int f0, long col, int tid) {
-  constexpr int RW = row_words<MaskT>();
-  constexpr int STRIDE = RW + 1;  // one pad word per row: conflict-free row walks
-  constexpr int VPW = Word<MaskT>::kValues;
-  // stage the operator rows: consecutive threads take consecutive words of a row
-  const uint32_t* msrc = reinterpret_cast<const uint32_t*>(rows);
-  for (int k = tid; k < ROWS * RW; k += TILE) {
-    const int r = k / RW, w = k - r * RW;
-    ms[r * STRIDE + w] = msrc[k];
-  }
-  const float s = SCALED ? scale[tid] : 1.f;
-#pragma unroll
-  for (int f = 0; f < DC; ++f) {
-    const float v = ct[(f0 + f) * n + col];
-    cs[f * TILE + tid] = staged<MaskT>(SCALED ? v * s : v);
-  }
-  __syncthreads();
-
-  float acc[DC];
-#pragma unroll
-  for (int f = 0; f < DC; ++f) acc[f] = 0.f;
-  const int group = ROWS == TILE ? 0 : (tid / ROWS) * ROWS;  // first column of tid's slot group
-  const uint32_t* mrow = ms + (ROWS == TILE ? tid : tid % ROWS) * STRIDE + group / VPW;
-  const float* c0 = cs + group;
-#pragma unroll 2
-  for (int w = 0; w < ROWS / VPW; ++w) {
-    const uint32_t word = mrow[w];
-#pragma unroll
-    for (int e = 0; e < VPW; ++e) {
-      const float a = Word<MaskT>::at(word, e);
-#pragma unroll
-      for (int f = 0; f < DC; ++f) acc[f] = fmaf(c0[f * TILE + w * VPW + e], a, acc[f]);
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < DC; ++f) out[(f0 + f) * n + col] = acc[f];
-}
-
-template <int DC, int SLOT, typename MaskT, bool SCALED, bool MIXED>
-__global__ void __launch_bounds__(TILE) strip_matmul_t_kernel(
-    const float* __restrict__ ct, const MaskT* __restrict__ strip, const float* __restrict__ scale, int ts,
-    const MaskT* __restrict__ blocks, const float* __restrict__ blocks_scale, float* __restrict__ out, long n) {
-  extern __shared__ __align__(16) uint32_t smem_t[];
-  uint32_t* ms = smem_t;                                                             // up to TILE rows
-  float* cs = reinterpret_cast<float*>(smem_t + TILE * (row_words<MaskT>() + 1));  // DC x TILE
-  const int t = blockIdx.x;
-  const int f0 = blockIdx.y * DC;
-  const int tid = threadIdx.x;
-  const long col = static_cast<long>(t) * TILE + tid;
-  if (!MIXED || t < ts) {
-    backward_tile<DC, SLOT, MaskT, SCALED>(ms, cs, ct, strip + static_cast<long>(t) * SLOT * TILE,
-                                           SCALED ? scale + static_cast<long>(t) * TILE : nullptr, out, n, f0, col,
-                                           tid);
-  } else {
-    const long tb = t - ts;
-    backward_tile<DC, TILE, MaskT, SCALED>(ms, cs, ct, blocks + tb * TILE * TILE,
-                                           SCALED ? blocks_scale + tb * TILE : nullptr, out, n, f0, col, tid);
-  }
-}
-
-template <int DC, int SLOT, typename MaskT, bool SCALED, bool MIXED>
-cudaError_t launch_kernel(const float* x, const void* strip, const float* scale, int ts, const void* blocks,
-                         const float* blocks_scale, float* out, int d, int n_tiles, bool transposed,
-                         cudaStream_t stream) {
-  const MaskT* sm = static_cast<const MaskT*>(strip);
-  const MaskT* bm = static_cast<const MaskT*>(blocks);
-  const dim3 grid(n_tiles, d / DC);
-  const long n = static_cast<long>(n_tiles) * TILE;
-  if (!transposed) {
-    strip_matmul_kernel<DC, SLOT, MaskT, SCALED, MIXED><<<grid, TILE, 0, stream>>>(x, sm, scale, ts, bm, blocks_scale,
-                                                                                   out, n);
-    return cudaGetLastError();
-  }
-  constexpr size_t bytes = smem_bytes_t<DC, MaskT>();
-  // Above 48 KiB (f32 operators) the dynamic shared memory limit must be
-  // raised, once per device, so later launches on that device, including ones
-  // captured into a CUDA graph, make no non-stream API call.
-  if (bytes > 48 * 1024) {
-    constexpr int kMaxDevices = 64;
-    static bool smem_set[kMaxDevices] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-    if (!smem_set[dev]) {
-      err = cudaFuncSetAttribute(strip_matmul_t_kernel<DC, SLOT, MaskT, SCALED, MIXED>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-      if (err != cudaSuccess) return err;
-      smem_set[dev] = true;
-    }
-  }
-  strip_matmul_t_kernel<DC, SLOT, MaskT, SCALED, MIXED><<<grid, TILE, bytes, stream>>>(x, sm, scale, ts, bm,
-                                                                                       blocks_scale, out, n);
-  return cudaGetLastError();
-}
-
-template <int DC, int SLOT, typename MaskT, bool SCALED>
-cudaError_t launch_typed(const float* x, const void* strip, const float* scale, int ts, const void* blocks,
-                         const float* blocks_scale, float* out, int d, int n_tiles, bool transposed,
-                         cudaStream_t stream) {
-  if constexpr (std::is_same<MaskT, Bf16State>::value) {
-    if (ts < n_tiles) return cudaErrorInvalidValue;  // built for slot-pure operators only
-  } else {
-    if (ts < n_tiles)
-      return launch_kernel<DC, SLOT, MaskT, SCALED, true>(x, strip, scale, ts, blocks, blocks_scale, out, d, n_tiles,
-                                                          transposed, stream);
-  }
-  return launch_kernel<DC, SLOT, MaskT, SCALED, false>(x, strip, scale, ts, blocks, blocks_scale, out, d, n_tiles,
-                                                       transposed, stream);
-}
-
-template <int DC, int SLOT>
-cudaError_t launch(const void* x, const void* strip, const void* scale, int ts, const void* blocks,
-                   const void* blocks_scale, int mask_kind, void* out, int d, int n_tiles, bool transposed,
-                   cudaStream_t stream) {
-  const float* xf = static_cast<const float*>(x);
-  const float* sf = static_cast<const float*>(scale);
-  const float* bsf = static_cast<const float*>(blocks_scale);
-  float* of = static_cast<float*>(out);
-  switch (mask_kind) {
-    case 0:  // int8 0/1 mask with per-column f32 scale
-      return launch_typed<DC, SLOT, int8_t, true>(xf, strip, sf, ts, blocks, bsf, of, d, n_tiles, transposed, stream);
-    case 1:  // f32 weights, no scale
-      return launch_typed<DC, SLOT, float, false>(xf, strip, sf, ts, blocks, bsf, of, d, n_tiles, transposed, stream);
-    case 2:  // bf16 weights, no scale
-      return launch_typed<DC, SLOT, __nv_bfloat16, false>(xf, strip, sf, ts, blocks, bsf, of, d, n_tiles, transposed,
-                                                          stream);
-    case 3:  // bf16 weights, state rounded to bf16 (the experiment scripts' product)
-      return launch_typed<DC, SLOT, Bf16State, false>(xf, strip, sf, ts, blocks, bsf, of, d, n_tiles, transposed,
-                                                      stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <int DC>
-cudaError_t launch_slot(const void* x, const void* strip, const void* scale, int ts, int slot, const void* blocks,
-                        const void* blocks_scale, int mask_kind, void* out, int d, int n_tiles, bool transposed,
-                        cudaStream_t stream) {
-  switch (slot) {
-    case 32:
-      return launch<DC, 32>(x, strip, scale, ts, blocks, blocks_scale, mask_kind, out, d, n_tiles, transposed, stream);
-    case 64:
-      return launch<DC, 64>(x, strip, scale, ts, blocks, blocks_scale, mask_kind, out, d, n_tiles, transposed, stream);
-    case TILE:
-      return launch<DC, TILE>(x, strip, scale, ts, blocks, blocks_scale, mask_kind, out, d, n_tiles, transposed,
-                              stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 int dispatch(const void* x, const void* strip, const void* scale, int ts, int slot, const void* blocks,
              const void* blocks_scale, int mask_kind, void* out, int d, int n_tiles, bool transposed,
@@ -358,13 +89,21 @@ int dispatch(const void* x, const void* strip, const void* scale, int ts, int sl
   if (d <= 0 || d % 8 != 0 || n_tiles < 0 || ts < 0 || ts > n_tiles) return static_cast<int>(cudaErrorInvalidValue);
   if (ts < n_tiles && blocks == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = (d % 16 == 0)
-                        ? launch_slot<16>(x, strip, scale, ts, slot, blocks, blocks_scale, mask_kind, out, d, n_tiles,
-                                          transposed, s)
-                        : launch_slot<8>(x, strip, scale, ts, slot, blocks, blocks_scale, mask_kind, out, d, n_tiles,
-                                         transposed, s);
-  return static_cast<int>(err);
+  const gnn_strip::Call c{static_cast<const float*>(x), strip, static_cast<const float*>(scale), ts, slot, blocks,
+                          static_cast<const float*>(blocks_scale), static_cast<float*>(out), d, n_tiles,
+                          static_cast<cudaStream_t>(stream)};
+  switch (mask_kind) {
+    case 0:
+      return static_cast<int>(transposed ? gnn_strip::launch_kind<0, true>(c) : gnn_strip::launch_kind<0, false>(c));
+    case 1:
+      return static_cast<int>(transposed ? gnn_strip::launch_kind<1, true>(c) : gnn_strip::launch_kind<1, false>(c));
+    case 2:
+      return static_cast<int>(transposed ? gnn_strip::launch_kind<2, true>(c) : gnn_strip::launch_kind<2, false>(c));
+    case 3:
+      return static_cast<int>(transposed ? gnn_strip::launch_kind<3, true>(c) : gnn_strip::launch_kind<3, false>(c));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace

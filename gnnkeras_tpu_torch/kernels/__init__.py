@@ -2,9 +2,11 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at first use, into ``gnnkeras_tpu_torch/_build/`` (named
-by the hash of the source and the shared headers, so an edit rebuilds), and loaded with
+by the hash of the sources and the shared headers, so an edit rebuilds), and loaded with
 ``ctypes``.  Nothing is downloaded and nothing outside the package directory
-is written.  ``build_all`` starts one ``nvcc`` per source at once.
+is written.  ``build_all`` starts one ``nvcc`` per translation unit at once
+(the strip kernels are nine: the entries, and one per mask kind and
+direction).
 
 ``LAUNCHES`` holds one plain launch counter per kernel.  The wrappers in
 ``ops/`` add one to their count right after a launch that returned no error,
@@ -67,6 +69,12 @@ _ENTRIES = {
     },
 }
 SOURCES = tuple(_ENTRIES)
+# A library built from several translation units ((file of csrc/, extra
+# nvcc flags), compiled in parallel, then linked); every other library is the
+# one file csrc/<name>.cu.  The strip kernels: the entries, then one unit per
+# mask kind and direction.
+_UNITS = {"strip_matmul": (("strip_matmul", ()),) + tuple(
+    ("strip_matmul_unit", (f"-DGNN_STRIP_KIND={kind}", f"-DGNN_STRIP_BWD={bwd}")) for kind in range(4) for bwd in (0, 1))}
 
 LAUNCHES: Dict[str, int] = {
     "strip_matmul": 0, "strip_matmul_t": 0, "strip_matmul_bf16_state": 0, "strip_matmul_t_bf16_state": 0,
@@ -98,12 +106,17 @@ def _source(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
+def _units(name: str):
+    return _UNITS.get(name, ((name, ()),))
+
+
 def library_path(name: str) -> str:
-    """The library of source ``name``, named by the hash of the source, the
-    shared headers (``csrc/*.cuh``) and the flags."""
+    """The library of source ``name``, named by the hash of its translation
+    units, the shared headers (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for path in [_source(name)] + [os.path.join(CSRC, f) for f in headers]:
+    h.update(repr(_units(name)).encode())
+    for path in sorted({_source(u) for u, _ in _units(name)}) + [os.path.join(CSRC, f) for f in headers]:
         with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
@@ -121,7 +134,8 @@ def build_log(name: str) -> str:
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every named source that has no library yet, one ``nvcc`` per
-    source, all started together.  Returns {name: library path}; raises with
+    translation unit, all started together (a library of several units is
+    linked once they are done).  Returns {name: library path}; raises with
     the compiler's output when a build fails."""
     names = list(names)
     paths = {name: library_path(name) for name in names}
@@ -130,20 +144,43 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    tmp = {name: f"{paths[name]}.tmp{os.getpid()}" for name in todo}
+    procs = []
     for name in todo:
-        tmp = f"{paths[name]}.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, _source(name)]
-        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
+        units = _units(name)
+        for i, (unit, flags) in enumerate(units):
+            if len(units) == 1:
+                cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", tmp[name], _source(unit)]
+            else:
+                cmd = [nvcc, *compile_flags, *flags, "-c", "-o", f"{tmp[name]}.{i}.o", _source(unit)]
+            procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs = {name: [] for name in todo}
+    bad = set()
+    for name, proc in procs:
         out, _ = proc.communicate()
+        logs[name].append(out)
+        if proc.returncode != 0:
+            bad.add(name)
+    failed = []
+    for name in todo:
+        objs = [f"{tmp[name]}.{i}.o" for i in range(len(_units(name)))]
+        if len(objs) > 1 and name not in bad:
+            link = subprocess.run([nvcc, "-shared", "-o", tmp[name], *objs], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            logs[name].append(link.stdout)
+            if link.returncode != 0:
+                bad.add(name)
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        out = "".join(logs[name])
         with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
             f.write(out)
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{out}")
+        if name in bad:
+            failed.append(f"--- {name} (nvcc failed) ---\n{out}")
         else:
-            os.replace(tmp, paths[name])
+            os.replace(tmp[name], paths[name])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths

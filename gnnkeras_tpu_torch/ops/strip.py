@@ -20,9 +20,10 @@ aggregation over deduplicated arcs); otherwise the weights are stored
 directly in f32 or bf16 with no scale.
 
 ``strip_matmul`` is the forward kernel and ``strip_matmul_t`` its backward
-(both in ``csrc/strip_matmul.cu``, one launch for both regions); on a CPU
-tensor each runs its plain PyTorch version (``_strip_matmul_plain``,
-``_strip_matmul_t_plain``).  The backward reads the forward operator
+(both in ``csrc/strip_matmul.cu``, one launch for both regions; every
+operand on a 16-byte boundary); on a CPU tensor each runs its plain
+PyTorch version (``_strip_matmul_plain``, ``_strip_matmul_t_plain``).  The
+backward reads the forward operator
 transposed on chip, so no transposed operator is stored.  ``strip_matmul``
 is differentiable through a ``torch.autograd.Function`` whose backward is
 ``strip_matmul_t``; its forward is the custom operator
@@ -376,8 +377,8 @@ def _launch_or_plain(name: str, x, strip, scale, blocks, blocks_scale, slot: int
         raise ValueError(f"{name}: operands on different devices")
     if not all(o.is_contiguous() for o in operands):
         raise ValueError(f"{name}: operands must be contiguous")
-    if strip.data_ptr() % 4 or (blocks is not None and blocks.data_ptr() % 4):
-        raise ValueError(f"{name}: the operator must start on a 4-byte boundary")
+    if any(o.data_ptr() % 16 for o in operands):  # the kernel's 16-byte asynchronous copies
+        raise ValueError(f"{name}: every operand must start on a 16-byte boundary")
     if x.dtype != torch.float32 or any(s is not None and s.dtype != torch.float32 for s in (scale, blocks_scale)):
         raise ValueError(f"{name}: state and scale must be float32")
     if strip.dtype not in _MASK_KIND:

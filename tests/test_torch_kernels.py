@@ -272,6 +272,120 @@ def test_mixed_strip_kernel_matches_plain_on_card(cuda, d, slot, case, storage, 
     assert kernels.LAUNCHES[direction] == before + 2
 
 
+def _strip_case_on(cuda, storage, slot, d, seed):
+    """(x, operands) of a slot-128 operator, or at slot 32 a mixed one."""
+    if slot == 128:
+        x, m, s = _strip_inputs(storage, t=40, d=d, seed=seed)
+        return x.to(cuda), [m.to(cuda), None if s is None else s.to(cuda), None, None, 128]
+    x, *op = _mixed_inputs(storage, slot, ts=20, tb=20, d=d, seed=seed)
+    return x.to(cuda), [None if o is None else o.to(cuda) for o in op] + [slot]
+
+
+# The strip kernels sum in a fixed order (no atomics): two launches on the
+# same operands give the same bits.
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["strip_matmul", "strip_matmul_t"])
+@pytest.mark.parametrize("storage", ["int8", "float32", "bfloat16"])
+@pytest.mark.parametrize("slot", [32, 128])
+def test_strip_kernel_is_deterministic_on_card(cuda, slot, storage, direction):
+    x, op = _strip_case_on(cuda, storage, slot, 16, seed=7)
+    fn = getattr(strip, direction)
+    assert torch.equal(fn(x, *op), fn(x, *op))
+
+
+# Every f32 exponent the kernels meet: feature rows scaled by 2^-60 … 2^60
+# (each row, scaled back, against the plain version at the tolerance above),
+# and values of those exponents mixed within a row (against the exact f64
+# product, within 2^-17 of the sum of the terms' magnitudes: 128 f32
+# roundings of a fused multiply-add chain).
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["strip_matmul", "strip_matmul_t"])
+@pytest.mark.parametrize("storage", ["int8", "float32", "bfloat16"])
+@pytest.mark.parametrize("slot", [32, 128])
+def test_strip_kernel_across_exponents_on_card(cuda, slot, storage, direction):
+    x, op = _strip_case_on(cuda, storage, slot, 16, seed=11)
+    fn = getattr(strip, direction)
+    plain = getattr(strip, f"_{direction}_plain")
+    rows = torch.ldexp(torch.ones(16, 1, device=cuda), torch.arange(-60, 61, 8, device=cuda)[:, None])
+    got, want = fn(x * rows, *op), plain(x * rows, *op)
+    torch.testing.assert_close(got / rows, want / rows, rtol=1e-5, atol=1e-5)
+    g = torch.Generator().manual_seed(12)
+    mixed = torch.ldexp(x, torch.randint(-60, 61, x.shape, generator=g).to(cuda))
+    full, sc = strip._full_operator(*op[:4], op[4])
+    dense = (full.double() if sc is None else full.double() * sc.double()[:, None, :])
+    dense = dense.transpose(1, 2) if direction == "strip_matmul_t" else dense
+    tiles = mixed.double().reshape(16, -1, 128).permute(1, 0, 2)
+    exact = torch.bmm(tiles, dense).permute(1, 0, 2).reshape(mixed.shape)
+    mag = torch.bmm(tiles.abs(), dense.abs()).permute(1, 0, 2).reshape(mixed.shape)
+    err = (fn(mixed, *op).double() - exact).abs()
+    assert (err <= 2.0**-17 * mag).all()
+
+
+def _fma_chain(x, op, scale, transpose):
+    """Per tile and output, the f32 fused multiply-add chain from 0 over
+    the contraction in order, as ``_strip_matmul_plain`` / ``_t_plain``
+    multiply (each step in f64, where the product is exact, rounded once to
+    f32), with the forward's scale on the output columns and the
+    backward's on the cotangent first."""
+    d, n = x.shape
+    tiles = x.reshape(d, -1, 128).permute(1, 0, 2).numpy()  # (T, d, 128)
+    w = op.double().numpy()
+    if transpose:
+        if scale is not None:
+            tiles = tiles * scale.numpy()[:, None, :]  # f32 products, as the plain version's
+        w = w.transpose(0, 2, 1)
+    acc = np.zeros(tiles.shape, np.float32)
+    x64 = tiles.astype(np.float64)
+    for k in range(128):
+        acc = (acc + x64[:, :, k, None] * w[:, None, k, :]).astype(np.float32)
+    if not transpose and scale is not None:
+        acc = acc * scale.numpy()[:, None, :]
+    return torch.from_numpy(acc).permute(1, 0, 2).reshape(d, n)
+
+
+# The plain version, the CPU's path and the reference of the card's checks,
+# sums each output as a fused multiply-add chain over the contraction in
+# order: the order the kernels follow (below).
+@pytest.mark.parametrize("direction", ["strip_matmul", "strip_matmul_t"])
+@pytest.mark.parametrize("storage", ["int8", "float32", "bfloat16"])
+@pytest.mark.parametrize("slot", [32, 128])
+def test_strip_plain_sums_in_contraction_order(slot, storage, direction):
+    x, op = _strip_case_on("cpu", storage, slot, 16, seed=13)
+    full, sc = strip._full_operator(*op[:4], op[4])
+    want = _fma_chain(x, full, sc, direction == "strip_matmul_t")
+    assert torch.equal(getattr(strip, f"_{direction}_plain")(x, *op), want)
+
+
+# The strip kernels sum as the plain version's f32 product does: each output
+# a fused multiply-add chain over the contraction in order, bit for bit, so
+# the card's forwards and train steps meet the CPU's (zero entries leave a
+# chain unchanged, so the kernels skip the expanded strips' zero blocks).
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["strip_matmul", "strip_matmul_t"])
+@pytest.mark.parametrize("storage", ["int8", "float32", "bfloat16"])
+@pytest.mark.parametrize("slot", [32, 128])
+def test_strip_kernel_sums_in_contraction_order_on_card(cuda, slot, storage, direction):
+    x, op = _strip_case_on(cuda, storage, slot, 16, seed=13)
+    got = getattr(strip, direction)(x, *op).cpu()
+    full, sc = strip._full_operator(*[None if o is None else o.cpu() for o in op[:4]], op[4])
+    want = _fma_chain(x.cpu(), full, sc, direction == "strip_matmul_t")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_strip_kernel_refuses_a_misaligned_operand(cuda):
+    x, m, _ = _strip_inputs("bfloat16", t=4)
+    x, m = x.to(cuda), m.to(cuda)
+    flat = torch.zeros(m.numel() + 8, dtype=m.dtype, device=cuda)
+    view = flat[2:2 + m.numel()].view(m.shape)  # 4 bytes past a 16-byte boundary
+    view.copy_(m)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    for fn in (strip.strip_matmul, strip.strip_matmul_t):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(x, view)
+    torch.testing.assert_close(strip.strip_matmul(x, m), strip._strip_matmul_plain(x, m, None), rtol=1e-5, atol=1e-5)
+
+
 # Row 8 at every width its kernel is built for (chunks of 8 to 40 rows:
 # 8-40, and 48 = two 24-row chunks), int8 and bf16, both directions; a
 # padded block list (zero blocks at the last tile) and a rectangular
