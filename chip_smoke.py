@@ -27,7 +27,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    weights from seed 0) serves requests of 1, 16 and 64 molecules through
    the fused kernel and one request holding a graph larger than a 128-node
    tile through the eval forward; outputs are checked against the same
-   Predictor on the CPU;
+   Predictor on the CPU.  Then the two fused kernels at the shape a served
+   request launches (the 64 molecules packed into the template's tiles),
+   checked and timed as in phase 2;
 4. flagship forward: ``GNNgraphBased.forward`` on the bench-scale
    slot-packed batch (as bench.py builds it, and a variant without parallel
    arcs so the int8 mask+scale storage applies): 5 iterations, 4 strip-kernel
@@ -453,9 +455,13 @@ def check_fused(model, batch, label, timed):
         n_bytes = op.blocks.numel() * 2 + 3 * 16 * n * 4 + 2 * 16 * 16 * 4
         with torch.no_grad():
             res["kernel_ms"] = graph_ms([lambda: fused_unfold_t(s0, c, ws, wa, op, 5, act)])
+            # the per-tile work without the iterations: staging, finding the
+            # nonzeros, the state in and out
+            res["kernel_ms_0_iterations"] = graph_ms([lambda: fused_unfold_t(s0, c, ws, wa, op, 0, act)])
             copies = [(s0.clone(), c.clone(), ws, wa, FusedDiagOperator(blocks=op.blocks.clone(), tile=op.tile))
                       for _ in range(cold_copies(n_bytes))]
-            res["kernel_cold_ms"] = graph_ms([lambda o=o: fused_unfold_t(*o, 5, act) for o in copies])
+            res["kernel_cold_ms"] = graph_ms([lambda o=o: fused_unfold_t(*o, 5, act) for o in copies],
+                                             calls=max(10, len(copies)))
             res["cold_copies"] = len(copies)
             del copies
             res["plain_ms"] = graph_ms([lambda: _fused_unfold_t_plain(s0, c, pad(ws), pad(wa), op.blocks, 5, act)])
@@ -520,9 +526,11 @@ def check_fused_rm(model, batch, label, dtype, timed):
         n_bytes = op.blocks.numel() * op.blocks.element_size() + 3 * n * d * 4 + 2 * d * d * 4
         with torch.no_grad():
             res["kernel_ms"] = graph_ms([lambda: fused_unfold(s0, c, ws, wa, op, 5, act)])
+            res["kernel_ms_0_iterations"] = graph_ms([lambda: fused_unfold(s0, c, ws, wa, op, 0, act)])
             copies = [(s0.clone(), c.clone(), ws, wa, FusedDiagOperator(blocks=op.blocks.clone(), tile=op.tile))
                       for _ in range(cold_copies(n_bytes))]
-            res["kernel_cold_ms"] = graph_ms([lambda o=o: fused_unfold(*o, 5, act) for o in copies])
+            res["kernel_cold_ms"] = graph_ms([lambda o=o: fused_unfold(*o, 5, act) for o in copies],
+                                             calls=max(10, len(copies)))
             res["cold_copies"] = len(copies)
             del copies
             res["plain_ms"] = graph_ms([lambda: _fused_unfold_plain(s0, c, ws, wa, op.blocks, 5, act)])
@@ -987,7 +995,7 @@ def serve_phase(model, model_cpu, sample, big, route_kernel, card):
     fused route and one holding a graph larger than a tile through the eval
     route, against the same Predictor on the CPU.  ``route_kernel``: the
     kernels each request launches besides ``fused_unfold_t`` on the fused
-    route.  Returns the launches of the requests."""
+    route.  Returns the launches of the requests and the card's Predictor."""
     from gnnkeras_tpu_torch import Predictor, kernels
 
     p = Predictor.for_graphs(model, sample + [big], batch_size=65, headroom=1.25, device="cuda")
@@ -1030,7 +1038,25 @@ def serve_phase(model, model_cpu, sample, big, route_kernel, card):
     emit({"phase": "serving", "focus": p.focus, "template_nodes": p.max_nodes, "template_arcs": p.max_arcs,
           "first_call_ms": lat, "median_ms_of_5": reps, "launches": serve_launches,
           "routes": {n: "fused" if n in fused_requests else "eval" for n in requests}, "card": card})
-    return serve_launches
+    return serve_launches, p
+
+
+def served_kernel_checks(model, p, sample):
+    """Rows 2 and 4 at the shape a served request launches: the 64-molecule
+    request tile-packed into the Predictor's template (``p.max_nodes`` nodes,
+    as ``Predictor._predict_fused`` packs it), checked against the plain
+    versions and timed warm and cold beside the bound; the tile count is the
+    lines' ``tiles``."""
+    import torch
+    from gnnkeras_tpu_torch import GraphObject, from_graph_object
+
+    merged = GraphObject.merge(list(sample), focus=p.focus, aggregation_mode=p.aggregation_mode)
+    batch = from_graph_object(merged, pad_nodes=p.max_nodes, pad_arcs=p.max_arcs, pad_graphs=None, tile_pack=True,
+                              compact_gmax=p.max_graphs, compact_nspan=p.max_nodes // 128 + 1, device="cuda")
+    assert batch.num_nodes == p.max_nodes
+    check_fused(model, batch, "served_template", timed=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_fused_rm(model, batch, "served_template", dtype, timed=True)
 
 
 def forward_phase(label, model, model_cpu, b_gpu, b_cpu, n_arcs, out_rows, card, per_forward, phase="forward",
@@ -1750,7 +1776,8 @@ def main():
     t_phase = time.perf_counter()
     sample = random_molecules(64, seed=1)
     big = random_molecules(1, seed=2, min_nodes=150, max_nodes=151)[0]
-    serve_launches = serve_phase(model, model_cpu, sample, big, {}, card)
+    serve_launches, predictor = serve_phase(model, model_cpu, sample, big, {}, card)
+    served_kernel_checks(model, predictor, sample)
 
     # -- 4. flagship forward -------------------------------------------------
     forward_launches = {}
@@ -1770,8 +1797,8 @@ def main():
 
     # -- 6. arc serving ------------------------------------------------------
     arc_model, arc_model_cpu = arc_gnn("cuda", seed=0), arc_gnn("cpu", seed=0)
-    arc_serve_launches = serve_phase(arc_model, arc_model_cpu, as_arc_focus(sample, seed=3),
-                                     as_arc_focus([big], seed=4)[0], {"incidence_select": 1}, card)
+    arc_serve_launches, _ = serve_phase(arc_model, arc_model_cpu, as_arc_focus(sample, seed=3),
+                                        as_arc_focus([big], seed=4)[0], {"incidence_select": 1}, card)
 
     # -- 7. arc forward ------------------------------------------------------
     arc_forward = forward_phase("bench_arc", arc_model, arc_model_cpu, b_arc, b_arc_cpu, n_real_arcs, n_real_arcs,

@@ -18,37 +18,59 @@
 // bf16, 64 KiB f32), the state and the constant (2 x 128 x d f32) and writes
 // 128 x d f32 once for all n_iter iterations; the arithmetic the data needs
 // (2 * d * nnz per iteration for the aggregation, 4 * d * d * 128 for the
-// transition) takes the f32 cores less time than the bytes take.  This
-// version multiplies the whole 128 x 128 block, about five times the
-// nonzeros' arithmetic, so the rate at which the SMs dispatch instructions
-// bounds it instead.
+// transition) takes the f32 cores less time than the bytes take.  The
+// one-block-per-tile kernel this replaced stayed at 9-11x that bound: it
+// multiplied every entry of the block (a molecule block holds about 1.5%
+// nonzeros), and with f32 blocks only two tiles fit on an SM.  What holds
+// this one above it, by the code's count (PERF.md), is shared memory's
+// issue rate (the transition's weights reach every thread as 16-byte
+// broadcasts: 2 DP DP / 4 loads a row and iteration, four multiply-adds
+// each), the serial chain of a walk step, and the per-tile work of finding
+// the nonzeros.
 //
-// Design: one block per tile, one thread per destination row, as the
-// feature-major kernel.  The block lives in shared memory for every
-// iteration, its rows padded from 128 to 130 entries: thread i reads entries
-// (i, j) and (i, j + 1) in one 4-byte (bf16) or 8-byte (f32) load, and at a
-// pitch of 65 words (bf16), or 130 words read 8 bytes at a time (f32), the
-// threads of a warp hit distinct banks.  The rounded state rows (128 x DP
-// floats, DP = d padded to 16 or 32, pad features zero) sit in shared
-// memory too and are read as float4 broadcasts; each thread keeps its own f32 state row, constant row
-// and aggregate in registers.  Two barriers per iteration: after every
-// thread has read the old rows, and after every thread has written its new
-// one.  State and constant come in, and the state goes out, through shared
-// memory, so that the 128 x d floats of a tile move as contiguous runs
-// (a row of 14 floats is not 16-byte aligned).  No tensor cores here.
+// Design: persistent blocks, as many as fit on the card (fewer when there
+// are fewer tiles), each walking tiles t = blockIdx.x, + gridDim.x, ...  A
+// ring of two or three stages (block | state rows | constant rows) is
+// filled by cp.async, so the next tiles' bytes arrive while the current
+// tile iterates; a tile's state and constant rows are one contiguous run of
+// 128 x d floats (16-byte aligned at any d), copied as they lie.  The
+// block's rows keep their 16-byte chunks XOR-swizzled by the row's low three
+// bits, so that eight threads reading their rows' chunk k hit distinct
+// banks.  One thread per destination row i.  On a tile's arrival each
+// thread reads its row once, as 16-byte loads, into a 128-bit mask of its
+// nonzero columns (a zero of either sign is not one) held in four
+// registers; every iteration walks only those bits, one step a bit
+// (__ffsll), reading the weight from the staged block, so a dense row costs
+// its 128 entries and a molecule row about two.  The rounded state lives in
+// shared memory node-major, rows of DP + 4 floats (DP = d padded to 16 or
+// 32, pad features zero), so a neighbour's features arrive as 16-byte
+// loads; each thread keeps its own f32 state row in registers.  The
+// transition keeps its two accumulators per output feature in registers and
+// reads the rounded weights in the order the chains consume them.  The
+// activation's switch stands outside its loop, and selu evaluates both
+// sides and selects, so that no element branches.  Two barriers per
+// iteration: after every thread has read the old rows, and after every
+// thread has written its new one.  The final state leaves through the
+// tile's staged state rows, as 16-byte stores.
+//
+// The sums are those of the one-block-per-tile kernel this replaced: each
+// aggregate an fmaf chain from +0 over the source columns ascending (a
+// skipped zero entry leaves the chain as it was, and the chain never holds
+// -0), each transition output two fmaf chains over f ascending, then
+// (zs + za) + c and the activation; bf16 blocks round the state, the
+// weights and the aggregate at the same three points.  No tensor cores.
 //
 // Entry: gnn_fused_unfold, a plain C function bound with ctypes.  It launches
-// on the caller's stream and returns cudaGetLastError().
+// on the caller's stream and returns cudaGetLastError().  The state, the
+// constant and the blocks start on 16-byte boundaries (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "activation.cuh"
+#include "fused_unfold.cuh"
 
 namespace {
-
-constexpr int PITCH = TILE + 2;  // entries per staged block row
 
 template <typename TB>
 __device__ __forceinline__ float round_cd(float x);
@@ -61,159 +83,194 @@ __device__ __forceinline__ float round_cd<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// entries k and k + 1 of a staged row (k even), as floats
-__device__ __forceinline__ float2 entry_pair(const float* a, int k) {
-  return *reinterpret_cast<const float2*>(a + k);
+// Bit e set where entry e of a 16-byte chunk of block entries is nonzero (a
+// zero of either sign is not)
+__device__ __forceinline__ uint32_t nonzero_bits(uint4 v, const float*) {
+  return static_cast<uint32_t>((v.x & 0x7fffffffu) != 0) | static_cast<uint32_t>((v.y & 0x7fffffffu) != 0) << 1 |
+         static_cast<uint32_t>((v.z & 0x7fffffffu) != 0) << 2 | static_cast<uint32_t>((v.w & 0x7fffffffu) != 0) << 3;
 }
-__device__ __forceinline__ float2 entry_pair(const __nv_bfloat16* a, int k) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + k));
+__device__ __forceinline__ uint32_t nonzero_bits(uint4 v, const __nv_bfloat16*) { return bf16_nonzero_bits(v); }
+
+// Shared memory of one block: STAGES ring stages, then the node-major
+// rounded state and the two rounded weights.
+template <int DP, typename TB>
+struct Layout {
+  static constexpr int EPC = 16 / static_cast<int>(sizeof(TB));    // block entries per 16-byte chunk
+  static constexpr int ROW = TILE * static_cast<int>(sizeof(TB));  // bytes per block row
+  static constexpr int BLOCK = TILE * ROW;
+  static constexpr int ROWS = TILE * DP * 4;      // room for a tile's (128, d) f32 rows, d <= DP
+  static constexpr int STAGE = BLOCK + 2 * ROWS;  // block | state rows | constant rows
+  static constexpr int SP = DP + 4;               // floats per node-major state row
+  static constexpr int FIXED = TILE * SP * 4 + 2 * DP * DP * 4;
+  static constexpr int STAGES = ring_stages(STAGE, FIXED);
+  static constexpr int BYTES = STAGES * STAGE + FIXED;
+};
+
+// Byte offset of 16-byte chunk k of row r in a staged block
+template <class L>
+__device__ __forceinline__ int chunk_at(int r, int k) {
+  return r * L::ROW + ((k ^ (r & 7)) << 4);
 }
 
-template <typename TB>
-__host__ __device__ constexpr size_t rm_block_bytes() {
-  return TILE * PITCH * sizeof(TB);  // a multiple of 16
+// Entry (i, j) of a staged block, as f32 (exact)
+template <class L>
+__device__ __forceinline__ float entry(const unsigned char* blk, int i, int j, const float*) {
+  return *reinterpret_cast<const float*>(blk + chunk_at<L>(i, j / L::EPC) + (j % L::EPC) * 4);
+}
+template <class L>
+__device__ __forceinline__ float entry(const unsigned char* blk, int i, int j, const __nv_bfloat16*) {
+  const uint16_t bits = *reinterpret_cast<const uint16_t*>(blk + chunk_at<L>(i, j / L::EPC) + (j % L::EPC) * 2);
+  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
 }
 
 template <int DP, typename TB>
-constexpr size_t rm_smem_bytes() {
-  return rm_block_bytes<TB>() + (TILE * DP + 2 * DP * DP) * sizeof(float);
+__device__ __forceinline__ void store_rounded(float* row, const float (&s)[DP]) {
+  float r[DP];
+#pragma unroll
+  for (int f = 0; f < DP; ++f) r[f] = round_cd<TB>(s[f]);
+  store_vec<DP>(row, r);
 }
 
 template <int DP, typename TB>
 __global__ void __launch_bounds__(TILE) fused_unfold_kernel(
     const float* __restrict__ s0, const float* __restrict__ c,
     const float* __restrict__ ws, const float* __restrict__ wa,
-    const TB* __restrict__ blocks, float* __restrict__ out, int d, int n_iter,
+    const TB* __restrict__ blocks, float* __restrict__ out, int d, int n_tiles, int n_iter,
     int act) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  TB* a_s = reinterpret_cast<TB*>(smem);
-  float* s_s = reinterpret_cast<float*>(smem + rm_block_bytes<TB>());  // (TILE, DP)
-  float* ws_s = s_s + TILE * DP;                                      // (DP, DP)
+  using L = Layout<DP, TB>;
+  constexpr int CPR = L::ROW / 16;  // chunks per block row
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_nm = reinterpret_cast<float*>(smem + L::STAGES * L::STAGE);  // (TILE, SP), rounded
+  float* ws_s = s_nm + TILE * L::SP;                                   // (DP, DP): [f][g]
   float* wa_s = ws_s + DP * DP;
 
-  const int t = blockIdx.x;
-  const int i = threadIdx.x;
-  const long base = static_cast<long>(t) * TILE * d;  // the tile's rows in s0, c, out
+  const int i = threadIdx.x;  // the thread's row
+  const uint32_t smem_s = smem_addr(smem);
+  const int row_chunks = 32 * d;  // 16-byte chunks of a tile's 128 x d floats
+  const TB* tb = nullptr;         // selects the storage's overloads
 
-  // stage the block with 16-byte loads, rows padded to PITCH entries
-  constexpr int PER_LOAD = 16 / sizeof(TB);
-  const uint4* a_src = reinterpret_cast<const uint4*>(blocks + static_cast<long>(t) * TILE * TILE);
-  for (int k = i; k < TILE * TILE / PER_LOAD; k += TILE) {
-    const uint4 v = a_src[k];
-    const int e = k * PER_LOAD;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(a_s + (e / TILE) * PITCH + e % TILE);
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  }
+  auto issue = [&](int t, int stage) {
+    const uint32_t st = smem_s + stage * L::STAGE;
+    const char* a = reinterpret_cast<const char*>(blocks + static_cast<long>(t) * TILE * TILE);
+#pragma unroll 4
+    for (int k = i; k < TILE * CPR; k += TILE) cp_async16(st + chunk_at<L>(k / CPR, k % CPR), a + k * 16);
+    const long base = static_cast<long>(t) * TILE * d;
+    for (int k = i; k < row_chunks; k += TILE) {
+      cp_async16(st + L::BLOCK + k * 16, s0 + base + 4 * k);
+      cp_async16(st + L::BLOCK + L::ROWS + k * 16, c + base + 4 * k);
+    }
+  };
+
+  // visible to every thread after the first tile's barrier
   for (int k = i; k < DP * DP; k += TILE) {
     const int f = k / DP, g = k % DP;
     const bool real = f < d && g < d;
     ws_s[k] = real ? round_cd<TB>(ws[f * d + g]) : 0.f;
     wa_s[k] = real ? round_cd<TB>(wa[f * d + g]) : 0.f;
   }
-  // the constant, then the state, staged through shared memory
-  for (int k = i; k < TILE * d; k += TILE) s_s[(k / d) * DP + k % d] = c[base + k];
-  __syncthreads();
-  float cc[DP];
-#pragma unroll
-  for (int g = 0; g < DP; ++g) cc[g] = g < d ? s_s[i * DP + g] : 0.f;
-  __syncthreads();
-  for (int k = i; k < TILE * d; k += TILE) s_s[(k / d) * DP + k % d] = s0[base + k];
-  __syncthreads();
-  float s[DP];
-#pragma unroll
-  for (int f = 0; f < DP; ++f) s[f] = f < d ? s_s[i * DP + f] : 0.f;
-  // the thread's own row only: no other thread touches it until the barrier
-#pragma unroll
-  for (int f = 0; f < DP; ++f) s_s[i * DP + f] = round_cd<TB>(s[f]);
-  __syncthreads();
 
-  const TB* a_row = a_s + i * PITCH;
-  for (int it = 0; it < n_iter; ++it) {
-    float agg[DP];
-#pragma unroll
-    for (int f = 0; f < DP; ++f) agg[f] = 0.f;
-#pragma unroll 2
-    for (int j = 0; j < TILE; j += 2) {
-      const float2 a = entry_pair(a_row, j);
-      const float4* x0 = reinterpret_cast<const float4*>(s_s + j * DP);
-      const float4* x1 = reinterpret_cast<const float4*>(s_s + (j + 1) * DP);
-#pragma unroll
-      for (int q = 0; q < DP / 4; ++q) {
-        const float4 u = x0[q];
-        agg[4 * q + 0] = fmaf(a.x, u.x, agg[4 * q + 0]);
-        agg[4 * q + 1] = fmaf(a.x, u.y, agg[4 * q + 1]);
-        agg[4 * q + 2] = fmaf(a.x, u.z, agg[4 * q + 2]);
-        agg[4 * q + 3] = fmaf(a.x, u.w, agg[4 * q + 3]);
-      }
-#pragma unroll
-      for (int q = 0; q < DP / 4; ++q) {
-        const float4 v = x1[q];
-        agg[4 * q + 0] = fmaf(a.y, v.x, agg[4 * q + 0]);
-        agg[4 * q + 1] = fmaf(a.y, v.y, agg[4 * q + 1]);
-        agg[4 * q + 2] = fmaf(a.y, v.z, agg[4 * q + 2]);
-        agg[4 * q + 3] = fmaf(a.y, v.w, agg[4 * q + 3]);
-      }
-    }
-    __syncthreads();  // every thread has read the old rows
+  int t_next = blockIdx.x;
+#pragma unroll 1
+  for (int s = 0; s < L::STAGES - 1; ++s) {
+    if (t_next < n_tiles) issue(t_next, s);
+    cp_async_commit();
+    t_next += gridDim.x;
+  }
+  int stage = 0;
+#pragma unroll 1
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    // the previous tile's stage is free again: fetch a later tile into it
+    if (t_next < n_tiles) issue(t_next, stage == 0 ? L::STAGES - 1 : stage - 1);
+    cp_async_commit();
+    t_next += gridDim.x;
+    cp_async_wait<L::STAGES - 1>();  // this thread's copies of tile t have landed
+    __syncthreads();                  // and every thread's
 
-    float sc[DP], ac[DP];
+    unsigned char* st = smem + stage * L::STAGE;
+    float* s_in = reinterpret_cast<float*>(st + L::BLOCK);  // (128, d), packed
+    const float* c_in = s_in + TILE * DP;                  // (128, d), packed
+
+    // row i's nonzero columns, 16-byte chunks of entries at a time
+    uint32_t mask[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int f = 0; f < DP; ++f) {
-      sc[f] = round_cd<TB>(s[f]);
-      ac[f] = round_cd<TB>(agg[f]);
-    }
+    for (int k = 0; k < CPR; ++k)
+      mask[k * L::EPC / 32] |= nonzero_bits(*reinterpret_cast<const uint4*>(st + chunk_at<L>(i, k)), tb)
+                               << (k * L::EPC % 32);
+    float s[DP];  // the thread's f32 state row
 #pragma unroll
-    for (int g = 0; g < DP; ++g) {
-      float zs = 0.f, za = 0.f;
+    for (int f = 0; f < DP; ++f) s[f] = f < d ? s_in[i * d + f] : 0.f;
+    store_rounded<DP, TB>(s_nm + i * L::SP, s);
+    __syncthreads();  // every row is in place
+
+#pragma unroll 1
+    for (int it = 0; it < n_iter; ++it) {
+      float agg[DP];
+#pragma unroll
+      for (int f = 0; f < DP; ++f) agg[f] = 0.f;
+      for_each_bit(mask, [&](int j) {
+        const float a = entry<L>(st, i, j, tb);
+        float x[DP];
+        load_vec<DP>(x, s_nm + j * L::SP);
+#pragma unroll
+        for (int f = 0; f < DP; ++f) agg[f] = fmaf(a, x[f], agg[f]);
+      });
+      __syncthreads();  // every thread has read the old rows
+
+      float zs[DP], za[DP];
+#pragma unroll
+      for (int g = 0; g < DP; ++g) zs[g] = za[g] = 0.f;
 #pragma unroll
       for (int f = 0; f < DP; ++f) {
-        zs = fmaf(sc[f], ws_s[f * DP + g], zs);
-        za = fmaf(ac[f], wa_s[f * DP + g], za);
+        const float sc = round_cd<TB>(s[f]), ac = round_cd<TB>(agg[f]);
+        float u[DP], v[DP];  // 16-byte loads, the same address across the block
+        load_vec<DP>(u, ws_s + f * DP);
+        load_vec<DP>(v, wa_s + f * DP);
+#pragma unroll
+        for (int g = 0; g < DP; ++g) {
+          zs[g] = fmaf(sc, u[g], zs[g]);
+          za[g] = fmaf(ac, v[g], za[g]);
+        }
       }
-      s[g] = g < d ? activate(zs + za + cc[g], act) : 0.f;
+#pragma unroll
+      for (int g = 0; g < DP; ++g) s[g] = zs[g] + za[g] + (g < d ? c_in[i * d + g] : 0.f);
+      activate(s, act);
+#pragma unroll
+      for (int g = 0; g < DP; ++g)
+        if (g >= d) s[g] = 0.f;
+      store_rounded<DP, TB>(s_nm + i * L::SP, s);
+      __syncthreads();  // the new rows are complete
     }
-#pragma unroll
-    for (int g = 0; g < DP; ++g) s_s[i * DP + g] = round_cd<TB>(s[g]);
-    __syncthreads();  // the new rows are complete
-  }
 
-  // the f32 state out through shared memory (own row, then every row)
+    // the f32 state out through the tile's staged state rows (read only
+    // before the first iteration, each thread its own row)
 #pragma unroll
-  for (int f = 0; f < DP; ++f) s_s[i * DP + f] = s[f];
-  __syncthreads();
-  for (int k = i; k < TILE * d; k += TILE) out[base + k] = s_s[(k / d) * DP + k % d];
+    for (int f = 0; f < DP; ++f)
+      if (f < d) s_in[i * d + f] = s[f];
+    __syncthreads();
+    float4* o = reinterpret_cast<float4*>(out + static_cast<long>(t) * TILE * d);
+    for (int k = i; k < row_chunks; k += TILE) o[k] = reinterpret_cast<const float4*>(s_in)[k];
+    __syncthreads();  // every thread is done with the stage
+    stage = stage + 1 == L::STAGES ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
 }
 
 template <int DP, typename TB>
 cudaError_t launch_rm(const void* s0, const void* c, const void* ws, const void* wa,
                       const void* blocks, void* out, int d, int n_tiles, int n_iter, int act,
                       cudaStream_t stream) {
-  constexpr size_t bytes = rm_smem_bytes<DP, TB>();
-  // Above 48 KiB the dynamic shared memory limit must be raised, once per
-  // device, so later launches on that device, including ones captured into a
-  // CUDA graph, make no non-stream API call.
-  if (bytes > 48 * 1024) {
-    constexpr int kMaxDevices = 64;
-    static bool smem_set[kMaxDevices] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-    if (!smem_set[dev]) {
-      err = cudaFuncSetAttribute(fused_unfold_kernel<DP, TB>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(bytes));
-      if (err != cudaSuccess) return err;
-      smem_set[dev] = true;
-    }
-  }
-  fused_unfold_kernel<DP, TB><<<n_tiles, TILE, bytes, stream>>>(
+  using L = Layout<DP, TB>;
+  static_assert(L::BYTES <= 227 * 1024, "a block's shared memory exceeds the SM's");
+  const auto kernel = fused_unfold_kernel<DP, TB>;
+  static int resident[kMaxDevices] = {};
+  int blocks_on_card = 0;
+  const cudaError_t err = resident_blocks(kernel, TILE, L::BYTES, resident, &blocks_on_card);
+  if (err != cudaSuccess) return err;
+  const int grid = n_tiles < blocks_on_card ? n_tiles : blocks_on_card;
+  kernel<<<grid, TILE, L::BYTES, stream>>>(
       static_cast<const float*>(s0), static_cast<const float*>(c),
       static_cast<const float*>(ws), static_cast<const float*>(wa),
-      static_cast<const TB*>(blocks), static_cast<float*>(out), d, n_iter, act);
+      static_cast<const TB*>(blocks), static_cast<float*>(out), d, n_tiles, n_iter, act);
   return cudaGetLastError();
 }
 

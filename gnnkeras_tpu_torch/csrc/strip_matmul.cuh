@@ -12,21 +12,18 @@
 
 #include <type_traits>
 
+#include "cp_async_ring.cuh"
+
 namespace gnn_strip {
 
 constexpr int TILE = 128;
 constexpr int THREADS = 128;  // 4 warps
-constexpr int kMaxDevices = 64;
 
 // bf16 weights of the bf16-state variant: the same two bytes as
 // __nv_bfloat16, a type of its own so that it instantiates kernels of its own
 struct Bf16State {
   __nv_bfloat16 w;
 };
-
-// Blocks of ``bytes`` of shared memory that fit on one SM (228 KiB, 1 KiB
-// of it reserved per block)
-constexpr int blocks_fit(int bytes) { return 228 * 1024 / (bytes + 1024); }
 
 // Shared memory of one block: STAGES ring stages of [operator tile | state
 // chunk | scale], then (bf16-state, the tensor-core route) the state's bf16
@@ -46,9 +43,7 @@ struct Layout {
   static constexpr int STATE = D * XROW;
   static constexpr int STAGE = OP + STATE + (SCALED ? TILE * 4 : 0);
   static constexpr int PLANE = MMA ? D * TILE * 2 : 0;
-  // three stages where they keep more tiles in flight on an SM than two
-  // (two stages leave room for more blocks, whose warps hide latency)
-  static constexpr int STAGES = 3 * blocks_fit(3 * STAGE + PLANE) > 2 * blocks_fit(2 * STAGE + PLANE) ? 3 : 2;
+  static constexpr int STAGES = ring_stages(STAGE, PLANE);
   static constexpr int BYTES = STAGES * STAGE + PLANE;
   // Operator rows keep their 16-byte chunks XOR-swizzled by row bits
   // [SHIFT, SHIFT + 3): ldmatrix reads rows r .. r + 7 (shift 0), the
@@ -67,23 +62,6 @@ __device__ __forceinline__ int swz(int r, int c) {
 template <class L>
 __device__ __forceinline__ int xoff(int f, int col) {
   return L::OP + f * L::XROW + col * 4 + (col >> 5) * 16;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; with src_bytes 0
-// nothing is read and the 16 bytes are zero
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes = 16) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Start the copies of one tile into the stage at shared address ``st``:
@@ -454,29 +432,12 @@ cudaError_t launch_kernel(const Call& c) {
   using L = Layout<D, SLOT, T, SCALED, MIXED>;
   static_assert(L::BYTES <= 227 * 1024, "a block's shared memory exceeds the SM's");
   const auto kernel = strip_kernel<D, SLOT, T, SCALED, MIXED, BWD>;
-  // Blocks resident on the whole card, found once per device (the shared
-  // memory limit raised first), so later launches on that device, including
-  // ones captured into a CUDA graph, make no non-stream API call.
   static int resident[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int blocks_on_card = 0;
+  const cudaError_t err = resident_blocks(kernel, THREADS, L::BYTES, resident, &blocks_on_card);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    if (L::BYTES > 48 * 1024) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-      if (err != cudaSuccess) return err;
-    }
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, L::BYTES);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    resident[dev] = per_sm * sms;
-  }
   const int chunks = (c.d + D - 1) / D;
-  int grid = resident[dev] / chunks;
+  int grid = blocks_on_card / chunks;
   grid = grid < 1 ? 1 : (grid > c.n_tiles ? c.n_tiles : grid);
   strip_kernel<D, SLOT, T, SCALED, MIXED, BWD><<<dim3(grid, chunks), THREADS, L::BYTES, c.stream>>>(
       c.x, static_cast<const T*>(c.strip), c.scale, c.ts, static_cast<const T*>(c.blocks), c.blocks_scale, c.out,

@@ -50,7 +50,7 @@ _ENTRIES = {
         "gnn_strip_matmul": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P],
         "gnn_strip_matmul_t": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P],
     },
-    "fused_unfold": {"gnn_fused_unfold_t": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "fused_unfold": {"gnn_fused_unfold_t": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "fused_unfold_rm": {"gnn_fused_unfold": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P]},
     "incidence": {
         "gnn_incidence_select": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

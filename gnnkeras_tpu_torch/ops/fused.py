@@ -151,10 +151,11 @@ def fused_unfold_t(
 ) -> torch.Tensor:
     """Whole unfold on feature-major state.  state0_t / const_t are
     (d_pad, N) with zero pad rows; w_state / w_agg are the row-major (d, h)
-    Dense weights, transposed and zero-padded to (d_pad, d_pad) here (the
-    zero pad columns keep pad rows from leaking into real rows).  Returns the
-    (d_pad, N) state.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel."""
+    Dense weights, transposed and zero-padded to (d_pad, d_pad) (the zero
+    pad columns keep pad rows from leaking into real rows): here for the
+    plain version, by the kernel as it stages them.  Returns the (d_pad, N)
+    state.  A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel."""
     d_pad, n = state0_t.shape
     d, h = w_state.shape
     if d != h:
@@ -166,19 +167,23 @@ def fused_unfold_t(
     t = op.blocks.shape[0]
     if op.tile != TILE or tuple(op.blocks.shape[1:]) != (TILE, TILE) or n != t * TILE:
         raise ValueError(f"fused_unfold_t: state has {n} columns, operator covers {t * op.tile}")
-    pad_w = lambda w: F.pad(w.T, (0, d_pad - d, 0, d_pad - h)).contiguous()
-    ws_t, wa_t = pad_w(w_state), pad_w(w_agg)
     if state0_t.device.type == "cpu":
-        return _fused_unfold_t_plain(state0_t, const_t, ws_t, wa_t, op.blocks, int(n_iter), activation)
-    return _fused_unfold_t_cuda(state0_t, const_t, ws_t, wa_t, op.blocks, int(n_iter), activation)
+        pad_w = lambda w: F.pad(w.T, (0, d_pad - d, 0, d_pad - h)).contiguous()
+        return _fused_unfold_t_plain(state0_t, const_t, pad_w(w_state), pad_w(w_agg), op.blocks, int(n_iter),
+                                     activation)
+    ws, wa = (w.to(torch.float32).contiguous() for w in (w_state, w_agg))
+    return _fused_unfold_t_cuda(state0_t, const_t, ws, wa, op.blocks, int(n_iter), activation)
 
 
-def _fused_unfold_t_cuda(state0_t, const_t, ws_t, wa_t, blocks, n_iter, activation):
+def _fused_unfold_t_cuda(state0_t, const_t, ws, wa, blocks, n_iter, activation):
+    """The kernel on (d_pad, N) state and constant and the row-major (d, d)
+    weights, which it transposes and zero-pads to (d_pad, d_pad) as it
+    stages them."""
     from gnnkeras_tpu_torch import kernels
 
     if state0_t.device.type != "cuda":
         raise ValueError(f"fused_unfold_t: no kernel for device {state0_t.device}")
-    operands = (state0_t, const_t, ws_t, wa_t, blocks)
+    operands = (state0_t, const_t, ws, wa, blocks)
     if any(x.device != state0_t.device for x in operands):
         raise ValueError("fused_unfold_t: operands on different devices")
     if not all(x.is_contiguous() for x in operands):
@@ -190,14 +195,16 @@ def _fused_unfold_t_cuda(state0_t, const_t, ws_t, wa_t, blocks, n_iter, activati
     d_pad = state0_t.shape[0]
     if d_pad not in (8, 16, 24, 32):
         raise ValueError(f"fused_unfold_t: the kernel takes d_pad in (8, 16, 24, 32), got {d_pad}")
+    if any(x.data_ptr() % 16 for x in (state0_t, const_t, blocks)):
+        raise ValueError("fused_unfold_t: state, const and blocks must start on a 16-byte boundary")
     if torch.is_grad_enabled() and any(x.requires_grad for x in operands):
         raise NotImplementedError("fused_unfold_t is inference-only; call under torch.no_grad()")
     out = torch.empty_like(state0_t)
     lib = kernels.load("fused_unfold")
     with torch.cuda.device(state0_t.device):
         err = lib.gnn_fused_unfold_t(
-            state0_t.data_ptr(), const_t.data_ptr(), ws_t.data_ptr(), wa_t.data_ptr(),
-            blocks.data_ptr(), out.data_ptr(), d_pad, blocks.shape[0], n_iter,
+            state0_t.data_ptr(), const_t.data_ptr(), ws.data_ptr(), wa.data_ptr(),
+            blocks.data_ptr(), out.data_ptr(), d_pad, ws.shape[0], blocks.shape[0], n_iter,
             _ACT_CODES[activation], kernels.stream_of(state0_t),
         )
     kernels.check(err, "fused_unfold_t")
@@ -249,7 +256,7 @@ def fused_unfold(
     folded (d, h) Dense rows; d == h.  Returns the (N, h) state after
     ``n_iter`` iterations.  ``tiles_per_step`` is the JAX kernel's grid
     blocking on the TPU; it is validated and changes neither the result nor
-    the CUDA launch (one block per tile).  A CPU tensor takes the plain
+    the CUDA launch (persistent blocks walking the tiles).  A CPU tensor takes the plain
     version; a CUDA tensor launches ``gnn_fused_unfold``."""
     n, d = state0.shape
     if w_state.shape != (d, d) or w_agg.shape != (d, d) or tuple(const.shape) != (n, d):
@@ -291,8 +298,8 @@ def _fused_unfold_cuda(state0, const, ws, wa, blocks, n_iter, activation):
     d = state0.shape[1]
     if not 1 <= d <= MAX_ROW_MAJOR_D:
         raise ValueError(f"fused_unfold: the kernel takes state widths 1 to {MAX_ROW_MAJOR_D}, got {d}")
-    if blocks.data_ptr() % 16:
-        raise ValueError("fused_unfold: the blocks must start on a 16-byte boundary")
+    if any(x.data_ptr() % 16 for x in (state0, const, blocks)):
+        raise ValueError("fused_unfold: state, const and blocks must start on a 16-byte boundary")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (state0, const)):
         raise NotImplementedError("fused_unfold is inference-only; call under torch.no_grad()")
     out = torch.empty_like(state0)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_fused_order as order
 from gnnkeras_tpu_torch import kernels
 from gnnkeras_tpu_torch.ops import bcsr, fused, incidence, strip
 
@@ -527,6 +528,51 @@ def test_fused_rowmajor_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         fused.fused_unfold(s0.double(), c, ws, wa, op, 5, "selu")
     with pytest.raises(ValueError, match="contiguous"):
         fused.fused_unfold(s0, c.T.contiguous().T, ws, wa, op, 5, "selu")
+
+
+# (tiles, seed, special): the special tiles beside sparse ones, and more
+# tiles than the card keeps resident blocks (132 SMs; two blocks each at
+# the flagship's widths, one at the widest), in counts that divide neither,
+# so blocks walk several tiles through the ring
+_ORDER_CASES = {"special": (6, 3, True), "301_tiles": (301, 4, False), "157_tiles": (157, 5, False)}
+
+
+# The whole-unfold kernels sum as tests/torch_fused_order.py does: each
+# aggregate an fmaf chain over the contraction ascending (zero entries
+# skipped, which leaves a chain as it was), each transition output two
+# chains over f ascending, then (zs + za) + c.  With the linear activation
+# (no exp or tanh of the card's own) the state is the reference's bit for
+# bit, and two launches give the same bits.  Row 2 at every width it is
+# built for; many tiles at the flagship's width and the widest.
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,d_pad", [("special", 8), ("special", 16), ("special", 24), ("special", 32),
+                                        ("301_tiles", 16), ("157_tiles", 32)])
+def test_fused_kernel_sums_in_the_kernels_order_on_card(cuda, case, d_pad):
+    t, seed, special = _ORDER_CASES[case]
+    s0, c, ws, wa, blocks = order.inputs_t(d_pad, t, seed, special)
+    want = order.unfold_t(s0, c, order.pad_t(ws, d_pad), order.pad_t(wa, d_pad), blocks, 5, "linear")
+    op = fused.FusedDiagOperator(blocks=torch.from_numpy(blocks).to(torch.bfloat16).to(cuda), tile=128)
+    args = [torch.from_numpy(x).to(cuda) for x in (s0, c, ws, wa)]
+    got = [fused.fused_unfold_t(*args, op, 5, "linear").cpu().numpy() for _ in range(2)]
+    assert order.same_bits(got[0], got[1])
+    assert order.same_bits(got[0], want), float(np.abs(got[0] - want).max())
+
+
+# Row 4 at d 1 (DP 16), 14 (the flagship), 16, 17 (DP 32) and 32, both
+# storages; many tiles at d 14 and 32.
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case,d", [("special", 1), ("special", 14), ("special", 16), ("special", 17),
+                                    ("special", 32), ("301_tiles", 14), ("157_tiles", 32)])
+def test_fused_rowmajor_kernel_sums_in_the_kernels_order_on_card(cuda, case, d, storage):
+    t, seed, special = _ORDER_CASES[case]
+    s0, c, ws, wa, blocks = order.inputs_rm(d, t, seed, special, w_std=0.25 * (14 / d) ** 0.5)
+    want = order.unfold(s0, c, ws, wa, blocks, 5, "linear", round_bf16=storage == "bfloat16")
+    op = fused.FusedDiagOperator(blocks=torch.from_numpy(blocks).to(getattr(torch, storage)).to(cuda), tile=128)
+    args = [torch.from_numpy(x).to(cuda) for x in (s0, c, ws, wa)]
+    got = [fused.fused_unfold(*args, op, 5, "linear").cpu().numpy() for _ in range(2)]
+    assert order.same_bits(got[0], got[1])
+    assert order.same_bits(got[0], want), float(np.abs(got[0] - want).max())
 
 
 # Widths 1 and 3 (one float per load), 14 (two), 24 and 32 (four, 16 bytes);
