@@ -25,6 +25,12 @@ _EXPORTS = {
     "from_graph_object": "gnnkeras_tpu_torch.graph.batch",
     "graphs_to_batch": "gnnkeras_tpu_torch.graph.batch",
     "GraphObject": "gnnkeras_tpu_torch.graph.graph",
+    "CompositeGraphObject": "gnnkeras_tpu_torch.graph.graph",
+    "CompositeGNNarcBased": "gnnkeras_tpu_torch.models.composite",
+    "CompositeGNNgraphBased": "gnnkeras_tpu_torch.models.composite",
+    "CompositeGNNnodeBased": "gnnkeras_tpu_torch.models.composite",
+    "LGNN": "gnnkeras_tpu_torch.models.lgnn",
+    "CompositeLGNN": "gnnkeras_tpu_torch.models.lgnn",
     "GNNarcBased": "gnnkeras_tpu_torch.models.gnn",
     "GNNgraphBased": "gnnkeras_tpu_torch.models.gnn",
     "GNNnodeBased": "gnnkeras_tpu_torch.models.gnn",

@@ -20,14 +20,27 @@
   band of 64, deduplicated: 3,892,679 arcs), average aggregation, and the
   node-focused model it runs; ``band=384`` gives a graph whose 7 tile
   offsets are more than the banded decomposition takes.
+- ``composite_of``: a graph as a ``CompositeGraphObject``, as the
+  repository's ``load_tu_dataset(composite=True)`` builds molecules (one
+  type: every node, the whole label), or typed into 3 node types by atom
+  class (``ATOM_TYPE_BOUNDS``); ``bench_composite_graph`` and
+  ``bench_typed_arc_graph`` are the bench batch and its arc twin so.
+- ``starter_clgnn`` and ``starter_cgnn``: the models of the repository's
+  ``examples/starter_composite.py`` (a CompositeLGNN of 5 graph-focused
+  composite GNNs at dim_state 10, and its single composite GNN);
+  ``flagship_lgnn``: an LGNN of 5 layers of the flagship architecture
+  (dim_state 0, so the state widens layer by layer: 14, 30, 46, 62, 78);
+  ``typed_arc_cgnn``: the arc-focused composite GNN over the 3 types.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from gnnkeras_tpu_torch.graph.graph import GraphObject
+from gnnkeras_tpu_torch.graph.graph import CompositeGraphObject, GraphObject
+from gnnkeras_tpu_torch.models.composite import CompositeGNNarcBased, CompositeGNNgraphBased
 from gnnkeras_tpu_torch.models.gnn import GNNarcBased, GNNgraphBased, GNNnodeBased
+from gnnkeras_tpu_torch.models.lgnn import LGNN, CompositeLGNN
 from gnnkeras_tpu_torch.models.mlp import MLP, get_inout_dims
 
 
@@ -145,3 +158,102 @@ def large_graph_gnn(device="cuda", seed: int = 0) -> GNNnodeBased:
     net_output = MLP(ino[0], lo, "softmax", kernel_initializer="glorot_normal", bias_initializer="glorot_normal")
     return GNNnodeBased(net_state, net_output, 0, 5, 0.0).build(seed=seed, device=device)
 
+
+
+# 3 node types by atom class: type t holds the classes below
+# ATOM_TYPE_BOUNDS[t] (and not below the type before) and reads the first
+# ATOM_TYPE_BOUNDS[t] label columns, which hold its one-hot class
+ATOM_TYPE_BOUNDS = (5, 10, 14)
+
+
+def composite_of(g: GraphObject, n_types: int = 1, aggregation_mode=None) -> CompositeGraphObject:
+    """``g`` as a composite graph of 1 node type (every node, the whole
+    label) or of 3 types by the argmax of its one-hot atom label
+    (``ATOM_TYPE_BOUNDS``); same arcs, targets, masks and graph partition.
+    ``aggregation_mode`` defaults to ``g``'s."""
+    n = g.nodes.shape[0]
+    if n_types == 1:
+        type_mask, dims = np.ones((n, 1), dtype=bool), (g.nodes.shape[1],)
+    elif n_types == 3:
+        types = np.searchsorted(ATOM_TYPE_BOUNDS[:-1], np.argmax(g.nodes, axis=1), side="right")
+        type_mask, dims = np.eye(3, dtype=bool)[types], ATOM_TYPE_BOUNDS
+    else:
+        raise ValueError(f"n_types {n_types} must be 1 or 3")
+    return CompositeGraphObject(
+        nodes=g.nodes, arcs=g.arcs, targets=g.targets, type_mask=type_mask, dim_node_label=dims, focus=g.focus,
+        set_mask=g.set_mask, output_mask=g.output_mask, sample_weight=g.sample_weight,
+        NodeGraph=(g.graph_of_node, g.nodegraph_weight), aggregation_mode=aggregation_mode or g.aggregation_mode,
+        arcs_canonical=True,
+    )
+
+
+def bench_composite_graph(seed: int = 0) -> CompositeGraphObject:
+    """``bench_graph(seed)`` as 1-type composite molecules."""
+    return composite_of(bench_graph(seed))
+
+
+def bench_typed_arc_graph(seed: int = 0) -> CompositeGraphObject:
+    """``bench_arc_graph(seed)`` typed into 3 node types by atom class,
+    'composite_average' aggregation."""
+    return composite_of(bench_arc_graph(seed), 3, "composite_average")
+
+
+def _state_net(input_dim, units):
+    return MLP(input_dim, units, "selu", kernel_initializer="lecun_normal", bias_initializer="lecun_normal")
+
+
+def _output_net(input_dim, units):
+    return MLP(input_dim, units, "softmax", kernel_initializer="glorot_normal", bias_initializer="glorot_normal")
+
+
+STARTER_DIM_STATE, STARTER_MAX_ITER, STARTER_THRESHOLD = 10, 5, 0.01
+
+
+def _starter_layer(layer: int) -> CompositeGNNgraphBased:
+    """Layer ``layer`` of the starter's CLGNN: BatchNorm → Dense(51→10,
+    selu) state net at layer 0, BatchNorm → Dense(75→10, selu) above (the
+    state and output of the layer below prepended to the 14-wide label),
+    BatchNorm → Dense(10→2, softmax) output net."""
+    ins, ls = get_inout_dims("state", [14], 3, 2, "g", STARTER_DIM_STATE, layer=layer, get_state=True,
+                             get_output=True)
+    return CompositeGNNgraphBased([_state_net(shape, ls) for shape in ins],
+                                  _output_net((STARTER_DIM_STATE,), [2]),
+                                  STARTER_DIM_STATE, STARTER_MAX_ITER, STARTER_THRESHOLD)
+
+
+def starter_clgnn(device="cuda", seed: int = 0, layers: int = 5) -> CompositeLGNN:
+    """``examples/starter_composite.py``'s CompositeLGNN (get_state and
+    get_output), random weights from ``seed``."""
+    return CompositeLGNN([_starter_layer(i) for i in range(layers)], True, True).build(seed=seed, device=device)
+
+
+def starter_cgnn(device="cuda", seed: int = 0) -> CompositeGNNgraphBased:
+    """``examples/starter_composite.py``'s single CompositeGNNgraphBased
+    (its ``--fit gnn`` model), random weights from ``seed``."""
+    return _starter_layer(0).build(seed=seed, device=device)
+
+
+def flagship_lgnn(device="cuda", seed: int = 0, layers: int = 5) -> LGNN:
+    """An LGNN of ``layers`` graph-focused GNNs of the flagship
+    architecture at dim_state 0 (get_state and get_output): layer l's state
+    is 14 + 16·l wide, max_iteration 5, threshold 0."""
+    gnns = []
+    for i in range(layers):
+        kw = dict(layer=i, get_state=True, get_output=True)
+        ins, ls = get_inout_dims("state", 14, 3, 2, "g", 0, **kw)
+        ino, lo = get_inout_dims("output", 14, 3, 2, "g", 0, **kw)
+        gnns.append(GNNgraphBased(_state_net(ins[0], ls), _output_net(ino[0], lo), 0, 5, 0.0))
+    return LGNN(gnns, True, True).build(seed=seed, device=device)
+
+
+def typed_arc_cgnn(device="cuda", seed: int = 0) -> CompositeGNNarcBased:
+    """Arc-focused composite GNN over the 3 atom types at dim_state 0: per
+    type a BatchNorm → Dense(d_t + 60 → 14, selu) state net over
+    ``[label[:d_t] | state | Σstate | per-type label sums | Σarcs]`` (the
+    model's own widths: the shape algebra of ``get_inout_dims`` leaves the
+    state out at dim_state 0), BatchNorm → Dense(31→2, softmax) output net
+    over ``[src state | dst state | arc label]``, max_iteration 5,
+    threshold 0."""
+    width, comp = 14, sum(ATOM_TYPE_BOUNDS) + 3
+    nets = [_state_net((d_t + 2 * width + comp,), [width]) for d_t in ATOM_TYPE_BOUNDS]
+    return CompositeGNNarcBased(nets, _output_net((2 * width + 3,), [2]), 0, 5, 0.0).build(seed=seed, device=device)

@@ -8,8 +8,9 @@ the aggregation operator (dense-block BCSR, or with ``agg_dtype`` its
 banded int8 decomposition, its quantised form or a cast copy), the strip
 operator of slot-packed batches (slot 128, or the slot-32/64 mixed format)
 and the compact tile-wise readout, and for the arc focus the incidence pairs
-of the arc readout.  Everything is built on the host in NumPy and moved to
-``device`` once.  Composite batches are not ported yet.
+of the arc readout.  A composite graph (``CompositeGraphObject``) also gives
+its node-type mask and the batch-constant per-type neighbour-label sums.
+Everything is built on the host in NumPy and moved to ``device`` once.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from gnnkeras_tpu_torch import native
-from gnnkeras_tpu_torch.graph.graph import GraphObject
+from gnnkeras_tpu_torch.graph.graph import CompositeGraphObject, GraphObject
 from gnnkeras_tpu_torch.ops.segment import segment_sum
 from gnnkeras_tpu_torch.utils.dtypes import floatx, resolve_device
 from gnnkeras_tpu_torch.utils.pytree import register_tensor_dataclass
@@ -81,8 +82,9 @@ class GraphBatch:
     · arc_label (A, da) · arcnode_weight (A,) · node_mask (N,) · arc_mask (A,)
     · set_mask/output_mask (M,) · graph_of_node (N,) i32 · nodegraph_weight
     (N,) · graph_mask (G,) · targets (R, T) · target_mask (R,) ·
-    sample_weight (R,).  ``host_pred_rows`` (NumPy, host only) lists the rows
-    of the supervised entities in the caller's order."""
+    sample_weight (R,) · composite batches: type_mask (N, T_types) bool and
+    agg_component (N, Σd_t + da).  ``host_pred_rows`` (NumPy, host only)
+    lists the rows of the supervised entities in the caller's order."""
 
     nodes: torch.Tensor
     arc_src: torch.Tensor
@@ -111,6 +113,11 @@ class GraphBatch:
     # the arc readout's select and scatter (ops/incidence.py); None elsewhere
     # or when the structure declined
     arc_inc: Optional[object] = None  # IncidencePairs
+    # composite batches: the node types, and the per-type neighbour-label
+    # sums gated by the source's type, concatenated with ``agg_arc_labels``
+    # (host-built in f64, batch-constant); None for homogeneous batches
+    type_mask: Optional[torch.Tensor] = None  # (N, T_types) bool
+    agg_component: Optional[torch.Tensor] = None  # (N, Σd_t + da)
     focus: str = "n"
     dim_node_label: Tuple[int, ...] = ()
     host_pred_rows: Optional[np.ndarray] = None
@@ -134,6 +141,10 @@ class GraphBatch:
     @property
     def dim_arc_label(self) -> int:
         return self.arc_label.shape[1]
+
+    @property
+    def num_types(self) -> int:
+        return 1 if self.type_mask is None else self.type_mask.shape[1]
 
     @property
     def dim_target(self) -> int:
@@ -426,6 +437,13 @@ def from_graph_object(
             bcsr = bcsr.to(device)
 
     agg_arc, agg_node = native.agg_label_sums(src[:a], dst[:a], w[:a], arc_label[:a], nodes, N)
+    type_mask = agg_component = None
+    if isinstance(g, CompositeGraphObject):
+        type_mask = np.zeros((N, g.num_types), dtype=bool)
+        type_mask[pos] = g.type_mask
+        per_type = native.agg_component_sums(src[:a], dst[:a], w[:a], nodes, type_mask,
+                                             [int(d) for d in g.DIM_NODE_LABEL], N)
+        agg_component = np.concatenate([per_type, agg_arc], axis=1)
 
     arc_inc = None
     if g.focus == "a" and dense_blocks:
@@ -459,6 +477,8 @@ def from_graph_object(
         agg_arc_labels=T(agg_arc.astype(dtype)),
         agg_node_labels=T(agg_node.astype(dtype)),
         arc_inc=arc_inc,
+        type_mask=None if type_mask is None else T(type_mask),
+        agg_component=None if agg_component is None else T(agg_component.astype(dtype)),
         focus=g.focus,
         dim_node_label=tuple(int(d) for d in g.DIM_NODE_LABEL),
         host_pred_rows=pred_rows,
@@ -499,9 +519,11 @@ def graphs_to_batch(
     strip_dtype: str = "float32",
     device="cuda",
 ) -> GraphBatch:
-    """Merge host graphs (disjoint union) and pad them into one batch; the
-    operator options pass through to ``from_graph_object``."""
-    merged = GraphObject.merge(list(graphs), focus=focus, aggregation_mode=aggregation_mode)
+    """Merge host graphs (disjoint union; composite graphs keep their type
+    masks) and pad them into one batch; the operator options pass through
+    to ``from_graph_object``."""
+    cls = CompositeGraphObject if isinstance(graphs[0], CompositeGraphObject) else GraphObject
+    merged = cls.merge(list(graphs), focus=focus, aggregation_mode=aggregation_mode)
     return from_graph_object(
         merged, pad_nodes, pad_arcs, pad_graphs, dense_blocks=dense_blocks, agg_dtype=agg_dtype,
         tile_pack=tile_pack, slot_pack=slot_pack, strip_dtype=strip_dtype, device=device,

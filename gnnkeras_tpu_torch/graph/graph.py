@@ -4,8 +4,11 @@ weights and the disjoint-union ``merge``.
 
 Operators travel as index + per-arc weight arrays (ArcNode/Adjacency) and
 ``(graph_of_node, nodegraph_weight)`` (NodeGraph); nothing sparse is
-materialised.  Persistence and ``CompositeGraphObject`` come with later
-slices of the port.
+materialised.  ``CompositeGraphObject`` adds a node-type mask and per-type
+label widths; its per-type adjacencies are never materialised (the
+composite models gate the shared arc weights by the source node's type).
+Persistence (``load``, ``get_dict_data``, ``CompositeAdjacencies_coo``)
+waits for ROADMAP queue 9.
 """
 
 from __future__ import annotations
@@ -17,11 +20,14 @@ import numpy as np
 from gnnkeras_tpu_torch.utils.dtypes import floatx
 
 _HOMOGENEOUS_MODES = ("sum", "normalized", "average")
+_COMPOSITE_MODES = _HOMOGENEOUS_MODES + ("composite_average",)
 
 
-def arcnode_weights(arcs: np.ndarray, aggregation_mode: str) -> np.ndarray:
+def arcnode_weights(arcs: np.ndarray, aggregation_mode: str, type_mask: Optional[np.ndarray] = None) -> np.ndarray:
     """Per-arc aggregation weights (the data vector of ArcNode/Adjacency):
-    'sum' → 1, 'normalized' → 1/num_arcs, 'average' → 1/indegree(dst)."""
+    'sum' → 1, 'normalized' → 1/num_arcs, 'average' → 1/indegree(dst),
+    'composite_average' → 1/(arcs into dst whose source has this arc's
+    source type), which needs the (N, T) ``type_mask``."""
     n_arcs = arcs.shape[0]
     dst = arcs[:, 1].astype(np.int64)
     w = np.ones(n_arcs, dtype=np.float64)
@@ -33,6 +39,17 @@ def arcnode_weights(arcs: np.ndarray, aggregation_mode: str) -> np.ndarray:
         if n_arcs:
             counts = np.bincount(dst)
             w /= counts[dst]
+    elif aggregation_mode == "composite_average":
+        if type_mask is None:
+            raise ValueError("'composite_average' requires a type_mask")
+        src = arcs[:, 0].astype(np.int64)
+        for t in type_mask.T:
+            sel = t[src] if n_arcs else np.zeros(0, dtype=bool)
+            if not np.any(sel):
+                continue
+            sel_dst = dst[sel]
+            counts = np.bincount(sel_dst)
+            w[sel] /= counts[sel_dst]
     else:
         raise ValueError(f"Unknown aggregation mode: {aggregation_mode!r}")
     return w.astype(floatx())
@@ -94,7 +111,7 @@ class GraphObject:
 
         self.aggregation_mode = str(aggregation_mode)
         self._check_mode(self.aggregation_mode)
-        self.arcnode_weight = arcnode_weights(self.arcs, self.aggregation_mode)
+        self.arcnode_weight = self._build_weights(self.aggregation_mode)
 
         if NodeGraph is not None:
             self.graph_of_node, self.nodegraph_weight = self._nodegraph_from_coo(NodeGraph)
@@ -110,6 +127,9 @@ class GraphObject:
     def _check_mode(mode: str) -> None:
         if mode not in _HOMOGENEOUS_MODES:
             raise ValueError(f"Unknown aggregation mode: {mode!r}")
+
+    def _build_weights(self, mode: str) -> np.ndarray:
+        return arcnode_weights(self.arcs, mode)
 
     def _nodegraph_from_coo(self, NodeGraph):
         """A ``(graph_of_node, weight)`` array pair, or anything with
@@ -203,4 +223,78 @@ class GraphObject:
         )
         merged.graph_of_node = np.concatenate(graph_of_node, axis=0)
         merged.nodegraph_weight = np.concatenate(nodegraph_weight, axis=0).astype(merged.dtype)
+        return merged
+
+
+class CompositeGraphObject(GraphObject):
+    """Heterogeneous graph: a ``GraphObject`` with a (N, T) node-type mask
+    and per-type node-label widths ``dim_node_label`` (type t reads the
+    first d_t label columns)."""
+
+    def __init__(self, nodes, arcs, targets, type_mask, dim_node_label, *args, **kwargs):
+        self.type_mask = np.asarray(type_mask).astype(bool)
+        super().__init__(nodes, arcs, targets, *args, **kwargs)
+        self.DIM_NODE_LABEL = np.array(dim_node_label, ndmin=1, dtype=int)
+
+    @staticmethod
+    def _check_mode(mode: str) -> None:
+        if mode not in _COMPOSITE_MODES:
+            raise ValueError(f"Unknown aggregation mode: {mode!r}")
+
+    def _build_weights(self, mode: str) -> np.ndarray:
+        return arcnode_weights(self.arcs, mode, type_mask=self.type_mask)
+
+    @property
+    def num_types(self) -> int:
+        return self.type_mask.shape[1]
+
+    def getTypeMask(self) -> np.ndarray:
+        return self.type_mask.copy()
+
+    def copy(self) -> "CompositeGraphObject":
+        return CompositeGraphObject(
+            nodes=self.nodes.copy(),
+            arcs=self.arcs.copy(),
+            targets=self.targets.copy(),
+            type_mask=self.type_mask.copy(),
+            dim_node_label=self.DIM_NODE_LABEL.copy(),
+            focus=self.focus,
+            set_mask=self.set_mask.copy(),
+            output_mask=self.output_mask.copy(),
+            sample_weight=self.sample_weight.copy(),
+            NodeGraph=(self.graph_of_node.copy(), self.nodegraph_weight.copy()),
+            aggregation_mode=self.aggregation_mode,
+        )
+
+    def __repr__(self):
+        return f"composite_{super().__repr__()}"
+
+    __str__ = __repr__
+
+    @classmethod
+    def merge(cls, glist: Sequence["CompositeGraphObject"], focus: str, aggregation_mode: str):
+        """The homogeneous merge plus the concatenated type masks; every
+        graph must have the same per-type label widths.  The weights are
+        rebuilt from the merged type mask (``composite_average`` counts per
+        type)."""
+        dims = {tuple(g.DIM_NODE_LABEL) for g in glist}
+        if len(dims) != 1:
+            raise AssertionError("DIM_NODE_LABEL not unique among graphs in glist")
+        base = GraphObject.merge(glist, focus, "sum")
+        merged = cls.__new__(cls)
+        merged.type_mask = np.concatenate([g.type_mask for g in glist], axis=0)
+        GraphObject.__init__(
+            merged,
+            nodes=base.nodes,
+            arcs=base.arcs,
+            targets=base.targets,
+            focus=focus,
+            set_mask=base.set_mask,
+            output_mask=base.output_mask,
+            sample_weight=base.sample_weight,
+            aggregation_mode=aggregation_mode,
+        )
+        merged.DIM_NODE_LABEL = np.array(dims.pop(), ndmin=1, dtype=int)
+        merged.graph_of_node = base.graph_of_node
+        merged.nodegraph_weight = base.nodegraph_weight
         return merged

@@ -36,8 +36,9 @@ the slot-32/64 mixed format), the banded decomposition (``ops/banded.py``),
 quantised BCSR (``ops/bcsr.py``, kernel row 8) or the dense-block BCSR.
 Batches carrying a banded or quantised operator always run feature-major.  The arc-focused readout reads both endpoints' rows
 through the incidence select and, backward, scatter kernels
-(``ops/incidence.py``).  The LGNN and composite models come with later
-slices.
+(``ops/incidence.py``).  The composite models (``models/composite.py``)
+and the LGNN stacks (``models/lgnn.py``) build on these classes and on
+``run_unfold_loops``.
 """
 
 from __future__ import annotations

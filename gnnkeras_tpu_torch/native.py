@@ -1,7 +1,8 @@
 """NumPy host kernels of the batch and operator builders.
 
 Copies of the NumPy paths of ``gnnkeras_tpu.native`` (``agg_label_sums``,
-``scatter_add_3d``, ``unique_i64``, ``factor_mask_scale``).  The JAX
+``agg_component_sums``, ``scatter_add_3d``, ``unique_i64``,
+``factor_mask_scale``).  The JAX
 package's C++ tier is pinned bit-identical to these paths, so host-built
 arrays of the two packages compare equal bit for bit.
 """
@@ -21,6 +22,24 @@ def agg_label_sums(src, dst, w, arc_label, nodes, n_rows):
     acc_node = np.zeros((n_rows, dn), np.float64)
     np.add.at(acc_node, dst, nodes[src].astype(np.float64) * w64)
     return acc_arc, acc_node
+
+
+def agg_component_sums(src, dst, w, nodes, type_mask, dims, n_rows):
+    """(n_rows, Σdims) f64: the per-type neighbour-label sums of a composite
+    batch, concatenated, ``Σ_{e→d, type t of src_e} w_e·nodes[src_e, :d_t]``
+    for each type t.  ``type_mask`` (N, T) bool gives the source nodes'
+    types; a node of several types contributes under each of them (the
+    multi-hot case)."""
+    dims = np.asarray(dims, np.int64)
+    offsets = np.concatenate([[0], np.cumsum(dims)[:-1]]).astype(np.int64)
+    acc = np.zeros((n_rows, int(dims.sum())), np.float64)
+    w64 = np.asarray(w).astype(np.float64)
+    for t, (d_t, off) in enumerate(zip(dims, offsets)):
+        gate = type_mask[src, t].astype(np.float64)
+        part = np.zeros((n_rows, int(d_t)), np.float64)
+        np.add.at(part, dst, nodes[src, : int(d_t)].astype(np.float64) * (w64 * gate)[:, None])
+        acc[:, off : off + int(d_t)] = part
+    return acc
 
 
 def scatter_add_3d(out, i0, i1, i2, w):

@@ -21,8 +21,9 @@ operators: a local one (plain BCSR; with ``agg_dtype`` the banded int8
 decomposition, quantised BCSR or a cast copy, as the single-graph routes
 choose) and a float BCSR over the exchanged rows.
 
-Not ported here: composite graphs (ROADMAP queue 6), ``tp_shards > 1``
-(queue 10b), and ``fit``'s checkpoints, validation and callbacks (queue 5).
+Not ported here: composite graphs (the composite models run on one device;
+their partitioned engine is ROADMAP queue 10b), ``tp_shards > 1`` (queue
+10b), and ``fit``'s checkpoints, validation and callbacks (queue 5).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from gnnkeras_tpu_torch.graph.graph import GraphObject
+from gnnkeras_tpu_torch.graph.graph import CompositeGraphObject, GraphObject
 from gnnkeras_tpu_torch.ops.segment import segment_sum
 from gnnkeras_tpu_torch.utils.dtypes import floatx
 
@@ -265,6 +266,8 @@ def partition_graph(g: GraphObject, n_parts: int, pad_multiple: int = 8, halo: b
     ``agg_dtype`` (needs ``dense_blocks``) stores the local one quantised or
     cast (``_local_operators``).  ``reorder='rcm'`` relabels the nodes by
     ``locality_order`` first."""
+    if isinstance(g, CompositeGraphObject):
+        raise NotImplementedError("composite graphs on the partitioned engine are not ported yet (ROADMAP queue 10b)")
     if reorder not in ("none", "rcm"):
         raise ValueError(f"unknown reorder {reorder!r} (none | rcm)")
     if agg_dtype is not None and not dense_blocks:

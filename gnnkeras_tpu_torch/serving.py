@@ -17,7 +17,10 @@
 
   The route is a choice by request shape, never by kernel health: a kernel
   that fails to build or launch raises.  Outputs come back in the caller's
-  (graph, entity) order.
+  (graph, entity) order.  Composite models (which never fold) and LGNN
+  stacks (focus from their first layer, the last layer's output served)
+  always take the eval forward; a composite request is merged by its own
+  class, so it keeps its type masks.
 - :func:`export_forward` / :func:`load_exported`: a portable artifact, the
   eval forward for one template batch shape saved by ``torch.export`` with
   the weights inside (``forward.pt2``) beside the serving metadata
@@ -56,6 +59,21 @@ def _round_up(x: int, m: int) -> int:
 _FOCUS_OF_NAME = {"node": "n", "arc": "a", "graph": "g"}
 
 
+def _first_layer(model):
+    """The model, or an LGNN stack's first layer (its focus and its kind of
+    state net)."""
+    return model.gnns[0] if hasattr(model, "gnns") else model
+
+
+def _focus_of(model) -> str:
+    return _FOCUS_OF_NAME.get(getattr(_first_layer(model), "name", "node"), "n")
+
+
+def _last_layer(out):
+    """An LGNN's per-layer outputs serve the last layer's."""
+    return out[-1] if isinstance(out, (list, tuple)) else out
+
+
 class Predictor:
     """Fixed-template inference endpoint around a model.
 
@@ -86,7 +104,7 @@ class Predictor:
         self.device = resolve_device(device)
         model.build(device=self.device)
         self.model = model
-        self.focus = _FOCUS_OF_NAME.get(getattr(model, "name", "node"), "n")
+        self.focus = _focus_of(model)
         self.aggregation_mode = aggregation_mode
         self.max_nodes = _round_up(int(max_nodes), 128)
         self.max_arcs = _round_up(int(max_arcs), 8)
@@ -123,7 +141,8 @@ class Predictor:
     def _merge(self, graphs: Sequence[GraphObject]) -> GraphObject:
         if len(graphs) > self.max_graphs:
             raise ValueError(f"request has {len(graphs)} graphs > template {self.max_graphs}")
-        merged = GraphObject.merge(list(graphs), focus=self.focus, aggregation_mode=self.aggregation_mode)
+        # by the request's class: a composite merge keeps the type masks
+        merged = type(graphs[0]).merge(list(graphs), focus=self.focus, aggregation_mode=self.aggregation_mode)
         n, a = merged.nodes.shape[0], merged.arcs.shape[0]
         if n > self.max_nodes or a > self.max_arcs:
             raise ValueError(f"request ({n} nodes, {a} arcs) overflows template ({self.max_nodes}, {self.max_arcs})")
@@ -149,7 +168,7 @@ class Predictor:
         ))
         # the generator draws a dim_state > 0 model's random initial state
         _, _, out, _, _ = self.model.forward(batch, training=False, generator=self.model.next_rng())
-        return out.cpu().numpy()[batch.host_pred_rows]
+        return _last_layer(out).cpu().numpy()[batch.host_pred_rows]
 
     def _predict_fused(self, merged: GraphObject) -> Optional[np.ndarray]:
         """The fused route, or None when the request does not qualify
@@ -220,7 +239,10 @@ class Predictor:
 
     def warmup(self) -> "Predictor":
         """Run both routes once (this builds the CUDA kernels on first use),
-        so the first real request pays no set-up."""
+        so the first real request pays no set-up.  A composite model needs
+        a ``warmup_graph`` (``for_graphs`` sets one) for its type layout."""
+        if self._warmup_graph is None and isinstance(_first_layer(self.model).net_state, torch.nn.ModuleList):
+            raise ValueError("composite Predictor warmup needs warmup_graph (use for_graphs)")
         if self._warmup_graph is None and self.dims is None:
             raise ValueError("warmup needs dims=(dn, da, dt) — or build via for_graphs")
         with self._lock:
@@ -237,7 +259,8 @@ class Predictor:
 class _EvalForward(torch.nn.Module):
     """``model.forward(training=False)`` in its exportable fixed-length
     form, on a batch given as its flat tensors (``spec``, the template's
-    pytree structure, rebuilds it); returns (out, out_mask)."""
+    pytree structure, rebuilds it); returns (out, out_mask), an LGNN's last
+    layer's output."""
 
     def __init__(self, model, spec):
         super().__init__()
@@ -247,7 +270,7 @@ class _EvalForward(torch.nn.Module):
     def forward(self, *flat):
         batch = pytree.tree_unflatten(list(flat), self.spec)
         _, _, out, out_mask, _ = self.model.forward(batch, training=False, fixed_length=True)
-        return out, out_mask
+        return _last_layer(out), out_mask
 
 
 def export_forward(model, template_batch: GraphBatch, path: str) -> None:
@@ -268,7 +291,7 @@ def export_forward(model, template_batch: GraphBatch, path: str) -> None:
     meta = {
         "n_params": len(program.state_dict),
         "model_class": type(model).__name__,
-        "focus": _FOCUS_OF_NAME.get(getattr(model, "name", "node"), "n"),
+        "focus": _focus_of(model),
         "batch_shapes": [list(x.shape) for x in flat],
         # the ints and layout the program was traced with
         "batch_static": static_signature(spec),

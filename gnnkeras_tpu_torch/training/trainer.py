@@ -9,6 +9,11 @@ state net's gradients by max(k, 1), the optimizer step, the new BatchNorm
 moving statistics and the step's log sums.  Nothing in it reads a device
 value on the host; the logs stay on the device until ``_reduce_logs``.
 
+An LGNN stack (``models/lgnn.py``) trains on the mean of its per-layer
+losses (``parallel``) or on the loss of its layers' mean output
+(``residual``); evaluation and ``predict`` read its last layer, and
+``average_st_grads`` divides each layer's state nets by that layer's k.
+
 ``fit`` runs the per-batch path over any object with ``len``, ``[i]`` and
 ``on_epoch_end`` that yields ``GraphBatch``es on the model's device.
 Validation, callbacks other than ``History``, checkpoints and resume, and
@@ -29,13 +34,31 @@ from gnnkeras_tpu_torch.training.losses import masked_mean
 from gnnkeras_tpu_torch.training.metrics import get_metric
 
 
+def _is_lgnn(model) -> bool:
+    from gnnkeras_tpu_torch.models.lgnn import LGNN
+
+    return isinstance(model, LGNN)
+
+
 def _objective(model, batch, generator: Optional[torch.Generator], training: bool):
-    """(loss, aux) for one batch of a single GNN: the masked mean of the
-    per-row loss plus the regularisation loss; aux holds ``y_pred``, ``k``
-    and ``new_state`` (the new moving statistics)."""
+    """(loss, aux) for one batch: the masked mean of the per-row loss plus
+    the regularisation loss; aux holds ``y_pred``, ``k`` (an LGNN's: one
+    per layer) and ``new_state`` (the new moving statistics).  An LGNN in
+    training takes its ``training_mode``'s loss; in evaluation the last
+    layer's."""
     y, mask, sw = batch.targets, batch.target_mask, batch.sample_weight
     k, _, out, _, new_state = model.forward(batch, training=training, generator=generator)
-    loss = masked_mean(model.loss(y, out), mask, sw) + model.regularization_loss()
+    if _is_lgnn(model):
+        outs, out = out, out[-1]
+        if training and model.training_mode == "parallel":
+            data_loss = sum(masked_mean(model.loss(y, o), mask, sw) for o in outs) / len(outs)
+        elif training and model.training_mode == "residual":
+            data_loss = masked_mean(model.loss(y, sum(outs) / len(outs)), mask, sw)
+        else:
+            data_loss = masked_mean(model.loss(y, out), mask, sw)
+    else:
+        data_loss = masked_mean(model.loss(y, out), mask, sw)
+    loss = data_loss + model.regularization_loss()
     return loss, {"y_pred": out, "k": k, "new_state": new_state}
 
 
@@ -193,6 +216,8 @@ def predict(model, sequencer) -> np.ndarray:
     for i in range(len(sequencer)):
         batch = sequencer[i]
         _, _, out, _, _ = model.forward(batch, training=False, generator=model.next_rng())
+        if _is_lgnn(model):
+            out = out[-1]
         out = out.cpu().numpy()
         rows = batch.host_pred_rows
         outs.append(out[rows] if rows is not None else out[batch.target_mask.cpu().numpy()])

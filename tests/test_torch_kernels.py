@@ -243,6 +243,27 @@ def test_strip_kernel_matches_plain_on_card(cuda, d, storage, direction):
     assert kernels.LAUNCHES[direction] == before + 2
 
 
+# Past 48 feature rows the strip kernels run chunks of 48 rows, one grid row
+# each (the homogeneous LGNN's layers 3 and 4 run d_pad 64 and 80): against
+# the plain version, and bit for bit against a second launch (each output
+# is one chain over its contraction, in one chunk).
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["strip_matmul", "strip_matmul_t"])
+@pytest.mark.parametrize("storage", ["int8", "float32", "bfloat16"])
+@pytest.mark.parametrize("d", [56, 64, 80, 96])
+def test_strip_kernel_past_48_rows_on_card(cuda, d, storage, direction):
+    x, m, s = (None if a is None else a.to(cuda) for a in _strip_inputs(storage, t=40, d=d, seed=d))
+    plain = {"strip_matmul": strip._strip_matmul_plain, "strip_matmul_t": strip._strip_matmul_t_plain}[direction]
+    fn = getattr(strip, direction)
+    got, again = fn(x, m, s), fn(x, m, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain(x, m, s), rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
+    # each chunk of 48 rows is its own product: the rows past 48 equal a launch on them alone
+    tail = fn(x[48:].contiguous(), m, s)
+    assert torch.equal(got[48:], tail)
+
+
 # The strip kernels at slot 32 and 64: both regions (compact strips, then
 # full blocks), no strip tile (Ts = 0: the blocks run as slot-128 strips, as
 # ``diag_operands`` passes them), and no block tile, in all three storages
@@ -927,3 +948,30 @@ def test_ring_shares_counters_between_ranks():
         assert size == 3 * 2 * 64
         assert seen == [10, 11, 12, 0, 0, 0]
         assert left == []
+
+
+@pytest.mark.cuda
+def test_composite_arc_forward_on_card_matches_cpu(cuda):
+    """The 3-type arc CGNN (``data/synthetic.typed_arc_cgnn``) on a small
+    slot-packed batch: the eval forward on the card (4 strip launches, 1
+    select) against the same forward on the CPU, f32 sums in other orders
+    (rtol 1e-5, atol 1e-6)."""
+    from gnnkeras_tpu_torch import GraphObject, graphs_to_batch
+    from gnnkeras_tpu_torch.data import synthetic as S
+
+    rng = np.random.default_rng(4)
+    arc = [GraphObject(nodes=g.nodes, arcs=g.arcs, targets=np.eye(2, dtype=np.float32)[rng.integers(0, 2, len(g.arcs))],
+                       focus="a", aggregation_mode="average", arcs_canonical=True)
+           for g in S.random_molecules(40, seed=4)]
+    typed = [S.composite_of(g, 3, "composite_average") for g in arc]
+    b_cpu = graphs_to_batch(typed, "a", "composite_average", slot_pack=128, device="cpu")
+    model, model_cpu = S.typed_arc_cgnn("cuda"), S.typed_arc_cgnn("cpu")
+    kernels.reset_launches()
+    k, state, out, mask, _ = model.forward(b_cpu.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["strip_matmul"] == 4 and kernels.LAUNCHES["incidence_select"] == 1
+    k_cpu, state_cpu, out_cpu, mask_cpu, _ = model_cpu.forward(b_cpu)
+    assert k == k_cpu == 5 and torch.equal(mask.cpu(), mask_cpu)
+    rows = mask_cpu
+    torch.testing.assert_close(out.cpu()[rows], out_cpu[rows], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(state.cpu()[b_cpu.node_mask], state_cpu[b_cpu.node_mask], rtol=1e-5, atol=1e-6)

@@ -171,9 +171,33 @@ def jax_init_draw(rng, n, ds):
     return np.asarray(jgnn.STATE_INIT_STDDEV * jax.random.normal(rng_loop, (n, ds), dtype=jnp.float32))
 
 
+def jax_lgnn_draws(rng, n, ds, layers):
+    """The JAX package's per-layer dim_state > 0 initial states of an LGNN
+    forward called with ``rng``: each layer splits (rng, rng_loop,
+    rng_out); the layers below the last unfold with rng_loop, the last runs
+    its forward with it (whose unfolding takes the first half of a split)."""
+    draws = []
+    for idx in range(layers):
+        rng, rng_loop, _ = jax.random.split(rng, 3)
+        if idx == layers - 1:
+            rng_loop, _ = jax.random.split(rng_loop)
+        draws.append(np.asarray(jgnn.STATE_INIT_STDDEV * jax.random.normal(rng_loop, (n, ds), dtype=jnp.float32)))
+    return draws
+
+
 def feed_init_draw(monkeypatch, draw):
-    """Make the port's ``initial_state`` return ``draw`` (the JAX draw)."""
-    monkeypatch.setattr(tgnn, "initial_state", lambda n, ds, generator, device: torch.tensor(draw, device=device))
+    """Make the port's ``initial_state`` return ``draw`` (the JAX draw); a
+    list of draws is returned in turn, one a call, from the first again
+    after the last (an LGNN draws once per layer and forward)."""
+    draws = list(draw) if isinstance(draw, (list, tuple)) else [draw]
+    calls = [0]
+
+    def fake(n, ds, generator, device):
+        d = draws[calls[0] % len(draws)]
+        calls[0] += 1
+        return torch.tensor(d, device=device)
+
+    monkeypatch.setattr(tgnn, "initial_state", fake)
 
 
 def np_of(x):
@@ -188,3 +212,203 @@ def np_of_jax(x):
     if a.dtype == jnp.bfloat16:
         return a.view(np.uint16)
     return a
+
+
+# -- composite graphs and models (3 node types by atom class) ------------------
+
+TYPE_BOUNDS = (5, 10, 14)  # type t: atom classes below TYPE_BOUNDS[t], reading its first TYPE_BOUNDS[t] labels
+
+
+def type_mask_of(nodes, n_types=3):
+    """(n, T) one-hot node types: 3 by the argmax of the one-hot atom
+    label (``TYPE_BOUNDS``), or 1."""
+    if n_types == 1:
+        return np.ones((nodes.shape[0], 1), dtype=bool)
+    return np.eye(3, dtype=bool)[np.searchsorted(TYPE_BOUNDS[:-1], np.argmax(nodes, axis=1), side="right")]
+
+
+def composite_graphs(module, raw, focus="g", n_types=3, mode=None, absent=None):
+    """``raw`` as ``module.CompositeGraphObject``s: 3 types with label
+    widths ``TYPE_BOUNDS`` ('composite_average'), or 1 type of the whole
+    label ('average').  ``absent``: a type whose nodes are moved to the
+    next type, so no node carries it."""
+    dims = TYPE_BOUNDS if n_types == 3 else (raw[0][0].shape[1],)
+    mode = mode or ("composite_average" if n_types == 3 else "average")
+    out = []
+    for n, a, t in raw:
+        tm = type_mask_of(n, n_types)
+        if absent is not None:
+            moved = tm[:, absent].copy()
+            tm[moved, absent] = False
+            tm[moved, (absent + 1) % n_types] = True
+        out.append(module.CompositeGraphObject(nodes=n, arcs=a, targets=t, type_mask=tm, dim_node_label=dims,
+                                               focus=focus, aggregation_mode=mode))
+    return out
+
+
+def composite_merged_pair(raw, focus="g", n_types=3, absent=None):
+    """The merged composite union of ``raw`` in both packages."""
+    kw = dict(focus=focus, n_types=n_types, absent=absent)
+    jg, tg = composite_graphs(jgraph, raw, **kw), composite_graphs(tgraph, raw, **kw)
+    mode = jg[0].aggregation_mode
+    return (jgraph.CompositeGraphObject.merge(jg, focus=focus, aggregation_mode=mode),
+            tgraph.CompositeGraphObject.merge(tg, focus=focus, aggregation_mode=mode))
+
+
+def composite_nets(module, focus="g", ds=0, dims=TYPE_BOUNDS, da=3, dt=2, layer=0, grow_state=True):
+    """Per-type state MLPs and the output MLP of a composite GNN at
+    dim_state ``ds``: at ds > 0 the shape algebra's widths (``layer`` of a
+    CLGNN with get_state and get_output), at ds 0 the model's own (the
+    state is the full label, which the shape algebra leaves out)."""
+    width = dims[-1] if ds == 0 else ds
+    if ds:
+        ins, ls = module.get_inout_dims("state", list(dims), da, dt, focus, ds, layer=layer, get_state=grow_state,
+                                        get_output=grow_state)
+    else:
+        full = dims[-1]
+        ins, ls = [(d_t + 2 * full + int(np.sum(dims)) + da,) for d_t in dims], [full]
+    nets = [module.MLP(input_dim=shape, layers=ls, activations="selu", kernel_initializer="lecun_normal",
+                       bias_initializer="lecun_normal") for shape in ins]
+    out_in = 2 * width + da if focus == "a" else width
+    net_out = module.MLP(input_dim=(out_in,), layers=[dt], activations="softmax", kernel_initializer="glorot_normal",
+                         bias_initializer="glorot_normal")
+    return nets, net_out
+
+
+def perturb_bn_tree(variables, seed):
+    """``perturb_bn`` for composite and LGNN trees: every BatchNorm's
+    statistics and affine parameters drawn anew."""
+    rng = np.random.default_rng(seed)
+
+    def walk(params, state):
+        if isinstance(params, dict) and "moving_mean" not in state and any(
+                isinstance(v, (list, dict)) for v in params.values()):
+            for key in params:
+                walk(params[key], state[key])
+        elif isinstance(params, list):
+            for p, s in zip(params, state):
+                walk(p, s)
+        elif "moving_mean" in state:
+            f = state["moving_mean"].shape
+            state["moving_mean"] = jnp.asarray(rng.normal(0.0, 0.3, f).astype(np.float32))
+            state["moving_var"] = jnp.asarray(rng.uniform(0.5, 2.0, f).astype(np.float32))
+            params["gamma"] = jnp.asarray(rng.uniform(0.7, 1.3, f[-1]).astype(np.float32))
+            params["beta"] = jnp.asarray(rng.normal(0.0, 0.1, f[-1]).astype(np.float32))
+
+    walk(variables["params"], variables["state"])
+    return variables
+
+
+_COMPOSITE_CLASSES = {"n": "CompositeGNNnodeBased", "a": "CompositeGNNarcBased", "g": "CompositeGNNgraphBased"}
+
+
+def cgnn_pair(focus="g", ds=0, seed=0, threshold=0.0, max_iteration=5, per_iteration_bn=False, n_types=3):
+    """A composite GNN of ``focus`` at dim_state ``ds`` over ``n_types``
+    types in both packages with the same weights (non-trivial BatchNorm
+    statistics); the port's model lives on the CPU."""
+    import gnnkeras_tpu.models.composite as jcomp
+    import gnnkeras_tpu_torch.models.composite as tcomp
+
+    dims = TYPE_BOUNDS if n_types == 3 else (14,)
+    kw = dict(per_iteration_bn=per_iteration_bn)
+    cls = _COMPOSITE_CLASSES[focus]
+    jm = getattr(jcomp, cls)(*composite_nets(jmlp, focus, ds, dims), ds, max_iteration, threshold, **kw)
+    jm.build(seed=seed)
+    jm.variables = perturb_bn_tree(jm.variables, seed)
+    tm = getattr(tcomp, cls)(*composite_nets(tmlp, focus, ds, dims), ds, max_iteration, threshold, **kw)
+    tm.build(seed=seed, device="cpu")
+    tm.load_state_dict(variables_from_jax(jax.tree_util.tree_map(np.asarray, jm.variables)))
+    return jm, tm
+
+
+def lgnn_pair(composite=True, focus="g", ds=10, layers=3, seed=0, threshold=0.0, n_types=1):
+    """An LGNN (get_state and get_output) of ``layers`` GNNs in both
+    packages with the same weights: composite layers over ``n_types``
+    types (the starter's architecture at ds 10), or homogeneous layers of
+    the flagship architecture (``get_inout_dims`` at each layer)."""
+    import gnnkeras_tpu.models.composite as jcomp
+    import gnnkeras_tpu.models.lgnn as jlgnn
+    import gnnkeras_tpu_torch.models.composite as tcomp
+    import gnnkeras_tpu_torch.models.lgnn as tlgnn
+
+    def build(mlp_mod, gnn_mod, comp_mod, lgnn_mod):
+        gnns = []
+        for i in range(layers):
+            if composite:
+                dims = TYPE_BOUNDS if n_types == 3 else (14,)
+                if ds == 0:
+                    # the state is the whole label: the layer below's state
+                    # and (off the arc focus) output before the t=0 label;
+                    # in arc focus the t=0 arc label follows its output
+                    width = 14 + i * (14 if focus == "a" else 16)
+                    dims = tuple(d + width - 14 for d in dims)
+                    da = 3 + (2 if focus == "a" and i else 0)
+                    nets = [mlp_mod.MLP(input_dim=(d_t + 2 * width + int(np.sum(dims)) + da,), layers=[width],
+                                        activations="selu", kernel_initializer="lecun_normal",
+                                        bias_initializer="lecun_normal") for d_t in dims]
+                    net_out = mlp_mod.MLP(input_dim=(2 * width + da if focus == "a" else width,), layers=[2],
+                                          activations="softmax", kernel_initializer="glorot_normal",
+                                          bias_initializer="glorot_normal")
+                else:
+                    nets, net_out = composite_nets(mlp_mod, focus, ds, dims, layer=i)
+                gnns.append(getattr(comp_mod, _COMPOSITE_CLASSES[focus])(nets, net_out, ds, 5, threshold))
+            else:
+                kw = dict(layer=i, get_state=True, get_output=True)
+                ins, ls = mlp_mod.get_inout_dims("state", 14, 3, 2, focus, ds, **kw)
+                ino, lo = mlp_mod.get_inout_dims("output", 14, 3, 2, focus, ds, **kw)
+                nets = mlp_mod.MLP(input_dim=ins[0], layers=ls, activations="selu", kernel_initializer="lecun_normal",
+                                   bias_initializer="lecun_normal")
+                net_out = mlp_mod.MLP(input_dim=ino[0], layers=lo, activations="softmax",
+                                      kernel_initializer="glorot_normal", bias_initializer="glorot_normal")
+                gnns.append(getattr(gnn_mod, _CLASSES[focus])(nets, net_out, ds, 5, threshold))
+        cls = lgnn_mod.CompositeLGNN if composite else lgnn_mod.LGNN
+        return cls(gnns, True, True)
+
+    jm = build(jmlp, jgnn, jcomp, jlgnn)
+    jm.build(seed=seed)
+    jm.variables = perturb_bn_tree(jm.variables, seed)
+    tm = build(tmlp, tgnn, tcomp, tlgnn).build(seed=seed, device="cpu")
+    tm.load_state_dict(variables_from_jax(jax.tree_util.tree_map(np.asarray, jm.variables)))
+    return jm, tm
+
+
+# XLA's backend (LLVM) optimisations off: the JAX references' compile time
+# dominates the composite and LGNN parity tests; the HLO, and so the f32
+# operations and their order, are those of a default jit
+_FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def run_jitted(fn, *args):
+    """``fn(*args)`` through ``jax.jit``, compiled with ``_FAST_COMPILE``."""
+    return jax.jit(fn).lower(*args).compile(_FAST_COMPILE)(*args)
+
+
+
+def adam_live(grad, want_grad, grad_rtol=1e-4, grad_atol_rel=1e-6, lr=0.01, eps=1e-7, atol=1e-6):
+    """The entries of a parameter whose first Adam step (lr·g/(|g| + eps))
+    moves by less than ``atol`` under the gradient error the parity checks
+    allow (``grad_rtol``·|g| + ``grad_atol_rel`` of the leaf's largest
+    |g|, a sign flip included), or whose gradient is exactly zero in both
+    packages: where Adam's step is not steep in g."""
+    g_abs = np.abs(want_grad)
+    g_err = grad_rtol * g_abs + grad_atol_rel * g_abs.max()
+    steep = lr * eps * g_err / (np.maximum(g_abs - g_err, 0.0) + eps) ** 2 >= atol
+    return ~steep | ((grad == 0) & (want_grad == 0))
+
+
+def port_dict(tree, section):
+    """The port's state-dict entries of one section ('params' or 'state')
+    of a JAX variables tree (gradients and new statistics come as such
+    sections)."""
+    other = "state" if section == "params" else "params"
+    return variables_from_jax({section: jax.tree_util.tree_map(np.asarray, tree), other: {}})
+
+
+def assert_stats(got, want_tree, rtol=1e-5, atol=1e-6):
+    """The port's moving statistics ``got`` (state-dict keys) against a JAX
+    statistics tree: the same names and shapes, values at rtol / atol."""
+    want = port_dict(want_tree, "state")
+    assert set(got) == set(want)
+    for name, w in want.items():
+        assert tuple(got[name].shape) == tuple(w.shape), name
+        np.testing.assert_allclose(got[name].detach().numpy(), w.numpy(), rtol=rtol, atol=atol, err_msg=name)
