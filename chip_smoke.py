@@ -106,8 +106,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    and gloo's ``all_gather``; the forward through both
    transports against the single-device forward, and one Adam step through
    ``collective`` against the single-device step, with launches per rank;
-18. the model family: the strip kernel at d 64 and 80 (its route past 48
-   feature rows) in both directions on the bench operator; then, on the
+18. the model family: the strip kernel at the homogeneous LGNN's widths d
+   32, 48, 64 and 80 (the last two its route past 48 feature rows) in both
+   directions on the bench operator; then, on the
    bench molecules as 1-type composite graphs, the starter's CLGNN
    (``examples/starter_composite.py``: 5 composite graph-focused layers,
    dim_state 10, threshold 0.01) served by a ``Predictor`` for requests of
@@ -661,7 +662,7 @@ def export_phase(cases, card):
         t = time.perf_counter()
         export_forward(model, batches[0], path)
         export_s[label] = time.perf_counter() - t
-        torch.save([(b, as_layers(model.forward(b)[2])[-1]) for b in batches], os.path.join(path, "inputs.pt"))
+        torch.save([(b, model.served_output(model.forward(b)[2])) for b in batches], os.path.join(path, "inputs.pt"))
     env = dict(os.environ, PYTHONPATH=REPO)
     t = time.perf_counter()
     res = subprocess.run([sys.executable, "-c", _LOADER, *paths.values()], cwd=REPO, env=env, capture_output=True,
@@ -818,7 +819,7 @@ def storage_of(batch):
 
 def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, n_arcs=None,
                 loss_fn="categorical_crossentropy", phase="training", grad_atol_rel=1e-6, compile_kw=None,
-                fit_steps=10, expect_k=5.0, iterations=5, control=None, widths=None):
+                fit_steps=10, expect_k=5.0, control=None, widths=None):
     """One Adam step of ``make_model(device)`` (compiled with ``loss_fn`` and
     ``compile_kw``) on the card against the same step on the CPU: loss, k
     (an LGNN's: one per layer; each ``expect_k`` unless None), gradients
@@ -826,7 +827,7 @@ def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, 
     statistics and updated parameters, and the step's launches
     (``per_step``).  With ``out_rows`` (the rows ``predict`` returns), then
     ``fit_steps`` steps through ``fit``, ``evaluate``, ``predict`` and 7
-    timed steps (``iterations`` transitions of every arc a step).  With
+    timed steps (Σk transitions of every arc a step).  With
     ``control`` (a context manager that plants a fault), the same step of a
     fresh card model under it must fail the gradient check.  ``widths``: a
     ``strip_widths`` entered around the checked step only.  Returns the
@@ -924,7 +925,7 @@ def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, 
         dt = float(np.median(ts))
         res.update({"fit_losses": losses, "evaluate": ev, "train_step_ms": dt * 1e3,
                     "train_step_ms_all": [t * 1e3 for t in ts],
-                    "train_transition_edges_per_s": iterations * n_arcs / dt, "arcs": n_arcs})
+                    "train_transition_edges_per_s": sum(ks) * n_arcs / dt, "arcs": n_arcs})
     emit(res)
     return launches
 
@@ -1563,8 +1564,9 @@ def family_forward(label, model, model_cpu, b_gpu, b_cpu, card, expect, n_arcs, 
     (rtol, atol); the host time (median of 7, synchronised).  The measured
     worst differences, and each check's share of its tolerance, are emitted
     before they are checked.  ``widths``: a ``strip_widths`` entered around
-    the checked run only.  ``control``: with a tolerance wider than phase
-    4's, the forward under this context manager must fail it."""
+    the checked run only.  ``control`` (with ``deep_tol`` wider than phase
+    4's): the forward under this context manager must fail the check of
+    the states of layers ≥ 1 at ``deep_tol``, the widened check itself."""
     import contextlib
 
     import torch
@@ -1611,9 +1613,13 @@ def family_forward(label, model, model_cpu, b_gpu, b_cpu, card, expect, n_arcs, 
            "forward_ms": dt * 1e3, "forward_ms_all": [t * 1e3 for t in ts],
            "transition_edges_per_s": sum(ks) * n_arcs / dt, "arcs": n_arcs, "card": card}
     if control is not None:
+        assert deep_tol != phase4, "a control tests a widened check"
         with control():
             _, bad_states, bad_outs, _, _ = run(model, b_gpu, "cuda")
-        res["control_tolerance_share"] = max(share(a, b, tol) for _, a, b, tol in checks(bad_states, bad_outs))
+        # over the widened checks only: failing a check at phase 4's
+        # tolerance would not show that the wider one sees the fault
+        res["control_tolerance_share"] = max(share(a, b, tol) for name, a, b, tol in checks(bad_states, bad_outs)
+                                             if name.startswith("state") and name != "state layer 0")
     emit(res)
     assert as_layers(ks_cpu, int) == ks, (ks, ks_cpu)
     assert launched == {name: expect(ks).get(name, 0) for name in kernels.LAUNCHES}, (launched, expect(ks))
@@ -1676,10 +1682,11 @@ def model_family_section(card, sample, b_bench, b_bench_cpu):
                                                    flagship_lgnn, starter_cgnn, starter_clgnn, typed_arc_cgnn)
 
     out = {}
-    # the strip kernel past d 48 (chunks of 48 rows, one grid row each): the
-    # widths of the homogeneous LGNN's layers 3 and 4 on the bench operator
+    # the strip kernel at the widths of the homogeneous LGNN's layers 1-4 on
+    # the bench operator (layer 0's d 16 is phase 2's check): d 32 and 48,
+    # and past 48 rows (chunks of 48, one grid row each) d 64 and 80
     out["wide"] = {(d, name): check_strip(b_bench.strip, "bench", timed=True, name=name, d=d)
-                   for d in (64, 80) for name in ("strip_matmul", "strip_matmul_t")}
+                   for d in (32, 48, 64, 80) for name in ("strip_matmul", "strip_matmul_t")}
 
     # (a) the starter's CLGNN and CGNN on the bench molecules as 1-type composite graphs
     t0 = time.perf_counter()
@@ -1707,7 +1714,7 @@ def model_family_section(card, sample, b_bench, b_bench_cpu):
                                         card, dict(strip_matmul=25, strip_matmul_t=20), out_rows=comp.num_graphs,
                                         n_arcs=n_arcs, phase="model_family_training", fit_steps=3, expect_k=None,
                                         compile_kw=dict(training_mode="parallel", average_st_grads=True),
-                                        iterations=25, grad_atol_rel=1e-4, control=bf16_aggregation)
+                                        grad_atol_rel=1e-4, control=bf16_aggregation)
         cgnn, cgnn_cpu = starter_cgnn("cuda", seed=0), starter_cgnn("cpu", seed=0)
         family_forward("starter_cgnn", cgnn, cgnn_cpu, b_comp, b_comp_cpu, card,
                        lambda ks: {"strip_matmul": sum(ks)}, n_arcs)
@@ -1741,7 +1748,7 @@ def model_family_section(card, sample, b_bench, b_bench_cpu):
     out["lgnn_step"] = train_phase("flagship_lgnn", lambda dev: flagship_lgnn(dev, seed=0), b_bench, b_bench_cpu,
                                    card, dict(strip_matmul=24, strip_matmul_t=24),
                                    out_rows=int(b_bench.graph_mask.sum()), n_arcs=n_bench_arcs,
-                                   phase="model_family_training", fit_steps=3, iterations=25,
+                                   phase="model_family_training", fit_steps=3,
                                    compile_kw=dict(training_mode="residual", average_st_grads=True),
                                    grad_atol_rel=1e-3, control=bf16_aggregation, widths=step_widths)
     assert step_widths.tally == {(name, d): n for name, widths in per_width.items() for d, n in widths.items()}, \
@@ -2338,7 +2345,8 @@ def main():
               ("packed_aggregate", "row12", "scripts/bench_strip64.py:187"))],
         # phase 18, rows 1/1b on the model family's paths: the starter CLGNN
         # (d_pad 16 on the bench operator, phase 2's checks), the homogeneous
-        # LGNN's layers past d 48, and the 3-type arc CGNN (its own strip
+        # LGNN's layers at every width (d 16: phase 2's checks; d 32-80:
+        # phase 18's), and the 3-type arc CGNN (its own strip
         # operator) with its readout's select and scatter (phase 2's checks:
         # the same pairs and width)
         entry("strip_matmul_clgnn", strip_src, "gnnkeras_tpu/ops/strip.py:278", sum(family["clgnn_fwd"]["k"]),
@@ -2346,9 +2354,9 @@ def main():
         entry("strip_matmul_t_clgnn", strip_src, "gnnkeras_tpu/ops/strip.py:278",
               family["clgnn_step"]["strip_matmul_t"], strip_t_bf16),
         *[entry(f"{name}_lgnn_d{d}", strip_src, "gnnkeras_tpu/ops/strip.py:278",
-                family["lgnn_widths"]["forward" if name == "strip_matmul" else "step"][(name, d)],
-                family["wide"][(d, name)])
-          for d in (64, 80) for name in ("strip_matmul", "strip_matmul_t")],
+                family["lgnn_widths"]["forward" if name == "strip_matmul" else "step"][(name, d)], check)
+          for (d, name), check in {(16, "strip_matmul"): strip_bf16, (16, "strip_matmul_t"): strip_t_bf16,
+                                   **family["wide"]}.items()],
         entry("strip_matmul_typed_arc_cgnn", strip_src, "gnnkeras_tpu/ops/strip.py:278",
               family["arc_fwd"]["launches"]["strip_matmul"], family["typed_strip"]["strip_matmul"]),
         entry("strip_matmul_t_typed_arc_cgnn", strip_src, "gnnkeras_tpu/ops/strip.py:278",

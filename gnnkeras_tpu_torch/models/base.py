@@ -23,6 +23,7 @@ class GraphModel(nn.Module):
         self.loss = None
         self.metrics = ()
         self.average_st_grads = False
+        self.training_mode: Optional[str] = None  # an LGNN's ('parallel', 'residual', 'serial')
         self._opt = None
         self._rng: Optional[torch.Generator] = None
 
@@ -42,6 +43,11 @@ class GraphModel(nn.Module):
         self.to(dev)
         self.device = dev
         return self
+
+    def served_output(self, out):
+        """The output of ``forward`` that predictions read (an LGNN's is its
+        last layer's)."""
+        return out
 
     def next_rng(self) -> torch.Generator:
         """A fresh generator on the model's device, seeded from the model's

@@ -56,7 +56,6 @@ class LGNN(GraphModel):
         self.LAYERS = len(gnns)
         self.get_state = bool(get_state)
         self.get_output = bool(get_output)
-        self.training_mode: Optional[str] = None
 
     @property
     def _is_arc(self) -> bool:
@@ -109,6 +108,9 @@ class LGNN(GraphModel):
         )
 
     # -- forward -----------------------------------------------------------------
+    def served_output(self, outs):
+        return outs[-1]
+
     def forward(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None,
                 fixed_length: bool = False):
         """Run every layer.  Returns (ks, states, outs, out_mask, new moving

@@ -69,11 +69,6 @@ def _focus_of(model) -> str:
     return _FOCUS_OF_NAME.get(getattr(_first_layer(model), "name", "node"), "n")
 
 
-def _last_layer(out):
-    """An LGNN's per-layer outputs serve the last layer's."""
-    return out[-1] if isinstance(out, (list, tuple)) else out
-
-
 class Predictor:
     """Fixed-template inference endpoint around a model.
 
@@ -168,7 +163,7 @@ class Predictor:
         ))
         # the generator draws a dim_state > 0 model's random initial state
         _, _, out, _, _ = self.model.forward(batch, training=False, generator=self.model.next_rng())
-        return _last_layer(out).cpu().numpy()[batch.host_pred_rows]
+        return self.model.served_output(out).cpu().numpy()[batch.host_pred_rows]
 
     def _predict_fused(self, merged: GraphObject) -> Optional[np.ndarray]:
         """The fused route, or None when the request does not qualify
@@ -270,7 +265,7 @@ class _EvalForward(torch.nn.Module):
     def forward(self, *flat):
         batch = pytree.tree_unflatten(list(flat), self.spec)
         _, _, out, out_mask, _ = self.model.forward(batch, training=False, fixed_length=True)
-        return _last_layer(out), out_mask
+        return self.model.served_output(out), out_mask
 
 
 def export_forward(model, template_batch: GraphBatch, path: str) -> None:

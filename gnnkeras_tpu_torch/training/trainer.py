@@ -34,12 +34,6 @@ from gnnkeras_tpu_torch.training.losses import masked_mean
 from gnnkeras_tpu_torch.training.metrics import get_metric
 
 
-def _is_lgnn(model) -> bool:
-    from gnnkeras_tpu_torch.models.lgnn import LGNN
-
-    return isinstance(model, LGNN)
-
-
 def _objective(model, batch, generator: Optional[torch.Generator], training: bool):
     """(loss, aux) for one batch: the masked mean of the per-row loss plus
     the regularisation loss; aux holds ``y_pred``, ``k`` (an LGNN's: one
@@ -47,15 +41,13 @@ def _objective(model, batch, generator: Optional[torch.Generator], training: boo
     training takes its ``training_mode``'s loss; in evaluation the last
     layer's."""
     y, mask, sw = batch.targets, batch.target_mask, batch.sample_weight
-    k, _, out, _, new_state = model.forward(batch, training=training, generator=generator)
-    if _is_lgnn(model):
-        outs, out = out, out[-1]
-        if training and model.training_mode == "parallel":
-            data_loss = sum(masked_mean(model.loss(y, o), mask, sw) for o in outs) / len(outs)
-        elif training and model.training_mode == "residual":
-            data_loss = masked_mean(model.loss(y, sum(outs) / len(outs)), mask, sw)
-        else:
-            data_loss = masked_mean(model.loss(y, out), mask, sw)
+    k, _, outs, _, new_state = model.forward(batch, training=training, generator=generator)
+    out = model.served_output(outs)
+    mode = model.training_mode if training else None
+    if mode == "parallel":
+        data_loss = sum(masked_mean(model.loss(y, o), mask, sw) for o in outs) / len(outs)
+    elif mode == "residual":
+        data_loss = masked_mean(model.loss(y, sum(outs) / len(outs)), mask, sw)
     else:
         data_loss = masked_mean(model.loss(y, out), mask, sw)
     loss = data_loss + model.regularization_loss()
@@ -216,9 +208,7 @@ def predict(model, sequencer) -> np.ndarray:
     for i in range(len(sequencer)):
         batch = sequencer[i]
         _, _, out, _, _ = model.forward(batch, training=False, generator=model.next_rng())
-        if _is_lgnn(model):
-            out = out[-1]
-        out = out.cpu().numpy()
+        out = model.served_output(out).cpu().numpy()
         rows = batch.host_pred_rows
         outs.append(out[rows] if rows is not None else out[batch.target_mask.cpu().numpy()])
     return np.concatenate(outs, axis=0)

@@ -23,7 +23,6 @@ states 8.4e-7 absolute, gradients 5e-7 of the largest |g|.
 
 import jax
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -33,7 +32,8 @@ import gnnkeras_tpu_torch.graph.batch as tbatch
 import gnnkeras_tpu_torch.graph.graph as tgraph
 import gnnkeras_tpu_torch.training.trainer as ttr
 from torch_port_common import Batches, adam_live, arc_targets, assert_stats, cgnn_pair, composite_merged_pair, \
-    feed_init_draw, jax_init_draw, merged_pair, node_targets, port_dict, raw_molecules, run_jitted, unique_pairs
+    feed_init_draw, jax_init_draw, jax_optimizer_step, merged_pair, node_targets, port_dict, raw_molecules, \
+    run_jitted, unique_pairs
 
 RTOL, ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-6
@@ -93,9 +93,7 @@ def _step_matches(jm, tm, jb, tb, rng):
     params, mstate = jm.variables["params"], jm.variables["state"]
     (jloss, aux), grads = run_jitted(jax.value_and_grad(
         lambda p, b, r: jtr._objective(jm, p, mstate, b, r, training=True), has_aux=True), params, jb, rng)
-    grads = jm.scale_state_grads(grads, aux["k"])
-    updates, _ = jm.optimizer.update(grads, jm.optimizer.init(params), params)
-    new_params = optax.apply_updates(params, updates)
+    grads, new_params = jax_optimizer_step(jm, params, grads, aux["k"])
     logs, taux = ttr.train_step(tm, tb, torch.Generator())
     assert float(taux["k"]) == float(aux["k"])
     np.testing.assert_allclose(float(logs["loss_sum"] / logs["count"]), float(jloss), rtol=RTOL)

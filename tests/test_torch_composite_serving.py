@@ -49,20 +49,29 @@ def _requests(kind):
     return composite_graphs(jgraph, raw, focus=focus), composite_graphs(tgraph, raw, focus=focus)
 
 
-def _models(kind, seed=3):
-    if kind == "cgnn":
-        return cgnn_pair("g", ds=0, seed=seed)
-    if kind == "cgnn_arc":
-        return cgnn_pair("a", ds=0, seed=seed)
-    if kind == "clgnn":
-        return lgnn_pair(True, "g", 0, 2, seed=seed, n_types=3)
-    return lgnn_pair(False, "g", 0, 2, seed=seed)
+@pytest.fixture(scope="module")
+def models():
+    """``get(kind)``: the JAX and the port's model of a kind, built once
+    for the module (serving reads their weights and changes none)."""
+    built = {}
+
+    def get(kind):
+        if kind not in built:
+            built[kind] = {
+                "cgnn": lambda: cgnn_pair("g", ds=0, seed=3),
+                "cgnn_arc": lambda: cgnn_pair("a", ds=0, seed=3),
+                "clgnn": lambda: lgnn_pair(True, "g", 0, 2, seed=3, n_types=3),
+                "lgnn": lambda: lgnn_pair(False, "g", 0, 2, seed=3),
+            }[kind]()
+        return built[kind]
+
+    return get
 
 
 @pytest.mark.parametrize("kind", ["cgnn", "cgnn_arc", "clgnn", "lgnn"])
-def test_predictor_matches_jax(kind):
+def test_predictor_matches_jax(kind, models):
     jg, tg = _requests(kind)
-    jm, tm = _models(kind)
+    jm, tm = models(kind)
     jp = jserving.Predictor.for_graphs(jm, jg, batch_size=len(jg))
     tp = tserving.Predictor.for_graphs(tm, tg, batch_size=len(tg), device="cpu")
     assert not tp.fused and not jp.fused and tp.focus == jp.focus
@@ -79,14 +88,14 @@ def test_predictor_matches_jax(kind):
                                atol=ATOL)
 
 
-def test_composite_warmup_needs_a_warmup_graph():
+def test_composite_warmup_needs_a_warmup_graph(models):
     _, tg = _requests("cgnn")
-    _, tm = _models("cgnn")
+    _, tm = models("cgnn")
     bare = tserving.Predictor(tm, 2048, 4096, 12, aggregation_mode="composite_average", dims=(14, 3, 2),
                               device="cpu")
     with pytest.raises(ValueError, match="warmup_graph"):
         bare.warmup()
-    _, tl = _models("clgnn")
+    _, tl = models("clgnn")
     with pytest.raises(ValueError, match="warmup_graph"):
         tserving.Predictor(tl, 2048, 4096, 12, dims=(14, 3, 2), device="cpu").warmup()
     p = tserving.Predictor.for_graphs(tm, tg, batch_size=len(tg), device="cpu")
@@ -94,9 +103,9 @@ def test_composite_warmup_needs_a_warmup_graph():
     assert p.warmup() is p
 
 
-def test_microbatcher_serves_composite_requests():
+def test_microbatcher_serves_composite_requests(models):
     _, tg = _requests("cgnn")
-    _, tm = _models("cgnn")
+    _, tm = models("cgnn")
     p = tserving.Predictor.for_graphs(tm, tg, batch_size=len(tg), device="cpu")
     mb = tserving.MicroBatcher(p, max_delay_ms=20.0)
     try:
@@ -122,8 +131,8 @@ print(sorted(m for m in sys.modules if m.startswith("gnnkeras_tpu_torch.models")
 """
 
 
-def test_clgnn_export_matches_forward_and_jax_artifact(tmp_path):
-    jm, tm = _models("clgnn", seed=5)
+def test_clgnn_export_matches_forward_and_jax_artifact(tmp_path, models):
+    jm, tm = models("clgnn")
     jgm, tgm = composite_merged_pair(_RAW, focus="g")
     jb = jbatch.from_graph_object(jgm, slot_pack=128, strip_dtype="float32")
     tb = tbatch.from_graph_object(tgm, slot_pack=128, strip_dtype="float32", device="cpu")

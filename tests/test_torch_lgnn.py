@@ -20,7 +20,9 @@ get_output:
 
 At dim_state 10 each layer draws its own initial state: JAX's per-layer
 draws for the rng its forward is given (``jax_lgnn_draws``) are fed to the
-port in layer order.
+port in layer order.  Each case's batches, models (one seed) and compiled
+JAX eval forward are built once for the module (``setups``); every test
+starts from the models' first weights.
 
 Tolerances, those of test_torch_composite.py (f32 in both, sums in other
 orders; the JAX references jitted): states, outputs, loss and statistics
@@ -36,9 +38,10 @@ layers the arc LGNN's layer-2 state departed by 1.25e-6 on an entry of
 bound.
 """
 
+from types import SimpleNamespace
+
 import jax
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -48,8 +51,9 @@ import gnnkeras_tpu_torch.graph.batch as tbatch
 import gnnkeras_tpu_torch.training.trainer as ttr
 from gnnkeras_tpu_torch.training.losses import get_loss
 from gnnkeras_tpu_torch.convert import variables_from_jax, variables_to_jax
-from torch_port_common import Batches, adam_live, arc_targets, assert_stats, composite_merged_pair, feed_init_draw, \
-    jax_lgnn_draws, lgnn_pair, merged_pair, port_dict, raw_molecules, run_jitted, unique_pairs
+from torch_port_common import Batches, adam_live, arc_targets, assert_stats, compile_jitted, composite_merged_pair, \
+    feed_init_draw, jax_lgnn_draws, jax_optimizer_step, lgnn_pair, merged_pair, port_dict, raw_molecules, run_jitted, \
+    unique_pairs
 
 RTOL, ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-6
@@ -85,14 +89,36 @@ def _loss(tb, out):
     return get_loss("categorical_crossentropy")(tb.targets, out)
 
 
-def _setup(case, monkeypatch, seed=4):
-    _, composite, focus, ds, n_types, layout, mode, layers = case
-    jb, tb = _batch_pair(composite, focus, n_types, layout)
-    jm, tm = lgnn_pair(composite, focus, ds, layers, seed=seed, n_types=n_types)
-    rng = jax.random.PRNGKey(11)
-    if ds:
-        feed_init_draw(monkeypatch, jax_lgnn_draws(rng, tb.num_nodes, ds, layers))
-    return jm, tm, jb, tb, rng, mode
+@pytest.fixture(scope="module")
+def setups():
+    """``get(case, monkeypatch)``: the case's batch pair, model pair, rng,
+    training mode and JAX eval forward (compiled once for the case), built
+    once for the module and shared by the tests; each call hands back both
+    models with their first weights and statistics, and feeds JAX's
+    per-layer draws to the port at dim_state > 0."""
+    built = {}
+
+    def get(case, monkeypatch):
+        _, composite, focus, ds, n_types, layout, mode, layers = case
+        if case not in built:
+            jb, tb = _batch_pair(composite, focus, n_types, layout)
+            jm, tm = lgnn_pair(composite, focus, ds, layers, seed=4, n_types=n_types)
+            rng = jax.random.PRNGKey(11)
+            forward = compile_jitted(lambda v, b, r: jm.forward(v, b, training=False, rng=r), jm.variables, jb, rng)
+            draws = jax_lgnn_draws(rng, tb.num_nodes, ds, layers) if ds else None
+            built[case] = SimpleNamespace(jm=jm, tm=tm, jb=jb, tb=tb, rng=rng, mode=mode, forward=forward,
+                                          draws=draws, variables=jm.variables,
+                                          weights={n: t.clone() for n, t in tm.state_dict().items()})
+        s = built[case]
+        s.jm.variables = s.variables
+        s.tm.load_state_dict(s.weights)
+        for p in s.tm.parameters():
+            p.grad = None
+        if s.draws is not None:
+            feed_init_draw(monkeypatch, s.draws)
+        return s
+
+    return get
 
 
 def _assert_stats(got, want_tree):
@@ -101,15 +127,15 @@ def _assert_stats(got, want_tree):
 
 
 @pytest.mark.parametrize("case", _CASES, ids=[c[0] for c in _CASES])
-def test_forward_matches_jax_layer_by_layer(case, monkeypatch):
-    jm, tm, jb, tb, rng, _ = _setup(case, monkeypatch)
-    jks, jstates, jouts, jmask, jst = run_jitted(lambda v, b, r: jm.forward(v, b, training=False, rng=r),
-                                                 jm.variables, jb, rng)
+def test_forward_matches_jax_layer_by_layer(case, setups, monkeypatch):
+    s = setups(case, monkeypatch)
+    jm, tm, jb, tb = s.jm, s.tm, s.jb, s.tb
+    jks, jstates, jouts, jmask, jst = s.forward(jm.variables, jb, s.rng)
     ks, states, outs, mask, st = tm.forward(tb, training=False, generator=torch.Generator())
     assert ks == [int(k) for k in jks] and len(ks) == case[-1]
     node_mask = np.asarray(jb.node_mask)
-    for layer, (s, js) in enumerate(zip(states, jstates)):
-        np.testing.assert_allclose(s.numpy()[node_mask], np.asarray(js)[node_mask], rtol=RTOL, atol=ATOL,
+    for layer, (state, js) in enumerate(zip(states, jstates)):
+        np.testing.assert_allclose(state.numpy()[node_mask], np.asarray(js)[node_mask], rtol=RTOL, atol=ATOL,
                                    err_msg=f"state {layer}")
     m = np.asarray(jmask)
     np.testing.assert_array_equal(mask.numpy(), m)
@@ -118,20 +144,19 @@ def test_forward_matches_jax_layer_by_layer(case, monkeypatch):
         np.testing.assert_allclose(o.numpy()[m], np.asarray(jo)[m], rtol=RTOL, atol=ATOL, err_msg=f"out {layer}")
     _assert_stats(st, jst)
     # the state widens layer by layer (dim_state 0) or stays (dim_state 10)
-    assert [s.shape[1] for s in states] == [np.asarray(js).shape[1] for js in jstates]
+    assert [state.shape[1] for state in states] == [np.asarray(js).shape[1] for js in jstates]
 
 
 @pytest.mark.parametrize("case", _CASES, ids=[c[0] for c in _CASES])
-def test_objective_and_adam_step_match_jax(case, monkeypatch):
-    jm, tm, jb, tb, rng, mode = _setup(case, monkeypatch, seed=5)
+def test_objective_and_adam_step_match_jax(case, setups, monkeypatch):
+    s = setups(case, monkeypatch)
+    jm, tm, jb, tb = s.jm, s.tm, s.jb, s.tb
     for m in (jm, tm):
-        m.compile(optimizer="adam:0.01", loss="categorical_crossentropy", training_mode=mode, average_st_grads=True)
+        m.compile(optimizer="adam:0.01", loss="categorical_crossentropy", training_mode=s.mode, average_st_grads=True)
     params, mstate = jm.variables["params"], jm.variables["state"]
     (jloss, aux), grads = run_jitted(jax.value_and_grad(
-        lambda p, b, r: jtr._objective(jm, p, mstate, b, r, training=True), has_aux=True), params, jb, rng)
-    grads = jm.scale_state_grads(grads, aux["k"])
-    updates, _ = jm.optimizer.update(grads, jm.optimizer.init(params), params)
-    new_params = optax.apply_updates(params, updates)
+        lambda p, b, r: jtr._objective(jm, p, mstate, b, r, training=True), has_aux=True), params, jb, s.rng)
+    grads, new_params = jax_optimizer_step(jm, params, grads, aux["k"])
     logs, taux = ttr.train_step(tm, tb, torch.Generator())
     assert [float(k) for k in taux["k"]] == [float(k) for k in aux["k"]]
     np.testing.assert_allclose(float(logs["loss_sum"] / logs["count"]), float(jloss), rtol=RTOL)
@@ -174,9 +199,9 @@ def test_the_modes_take_their_losses():
     assert aux["y_pred"] is not None and len(aux["k"]) == LAYERS
 
 
-def test_jax_train_step_body_evaluate_and_predict_match(monkeypatch):
-    case = _CASES[0]
-    jm, tm, jb, tb, rng, _ = _setup(case, monkeypatch, seed=7)
+def test_jax_train_step_body_evaluate_and_predict_match(setups, monkeypatch):
+    s = setups(_CASES[0], monkeypatch)
+    jm, tm, jb, tb, rng = s.jm, s.tm, s.jb, s.tb, s.rng
     for m in (jm, tm):
         m.compile(optimizer="sgd:0.1", loss="categorical_crossentropy", metrics=["accuracy"],
                   training_mode="parallel", average_st_grads=True)
@@ -197,7 +222,7 @@ def test_jax_train_step_body_evaluate_and_predict_match(monkeypatch):
         _, _, outs, mask, _ = tm.forward(tb, training=False, generator=torch.Generator())
     last = ttr.masked_mean(_loss(tb, outs[-1]), tb.target_mask, tb.sample_weight) + tm.regularization_loss()
     np.testing.assert_allclose(ev["loss"], float(last), rtol=1e-6)
-    jouts = run_jitted(lambda v, b, r: jm.forward(v, b, training=False, rng=r)[2], jm.variables, jb, rng)
+    jouts = s.forward(jm.variables, jb, rng)[2]
     pred = tm.predict(Batches([tb]))
     rows = tb.host_pred_rows
     np.testing.assert_allclose(pred, np.asarray(jouts[-1])[rows], rtol=RTOL, atol=ATOL)

@@ -8,6 +8,7 @@ port's weights are the JAX model's, copied through
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import torch
 
 import gnnkeras_tpu.graph.graph as jgraph
@@ -378,9 +379,29 @@ def lgnn_pair(composite=True, focus="g", ds=10, layers=3, seed=0, threshold=0.0,
 _FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
+def compile_jitted(fn, *args):
+    """``fn`` through ``jax.jit``, compiled with ``_FAST_COMPILE`` for the
+    shapes of ``args`` (call it again on others of those shapes)."""
+    return jax.jit(fn).lower(*args).compile(_FAST_COMPILE)
+
+
 def run_jitted(fn, *args):
     """``fn(*args)`` through ``jax.jit``, compiled with ``_FAST_COMPILE``."""
-    return jax.jit(fn).lower(*args).compile(_FAST_COMPILE)(*args)
+    return compile_jitted(fn, *args)(*args)
+
+
+def jax_optimizer_step(jm, params, grads, k):
+    """The JAX package's first step of ``jm``'s optimizer on ``grads``,
+    scaled by ``average_st_grads`` as its trainer scales them (``k``: the
+    iteration count, an LGNN's per layer), jitted: (scaled grads, new
+    params)."""
+
+    def step(p, g, k):
+        g = jm.scale_state_grads(g, k)
+        updates, _ = jm.optimizer.update(g, jm.optimizer.init(p), p)
+        return g, optax.apply_updates(p, updates)
+
+    return run_jitted(step, params, grads, k)
 
 
 
