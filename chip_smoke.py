@@ -123,7 +123,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    CGNN on the bench arc twin typed by atom class: forward (4 strip, 1
    select) and one Adam step (4 + 4 strip, 1 select, 1 scatter).  The
    dim_state 10 models draw their initial states on the host
-   (``host_initial_state``), so card and CPU draw the same.
+   (``host_initial_state``), so card and CPU draw the same;
+19. the data pipeline and the fit loop, on 4,337 ``random_molecules`` of
+   5-55 nodes split by ``dataset_splits(seed=0)`` into 2,837 / 750 / 750,
+   in ``MultiGraphSequencer``s of 1,000 graphs (``slot_pack=128``,
+   ``strip_dtype='int8'``: the latch settles on bf16, parallel arcs): (1)
+   the flagship trains 3 epochs with validation, ``EarlyStopping``
+   (restoring the best weights), ``ReduceLROnPlateau`` and a ``CSVLogger``
+   under ``chiprun_out/``, then ``evaluate`` and ``predict``; the card's
+   batches equal a CPU sequencer's, field for field, before and after the
+   first background rebuild (its build and the fit's waits timed); (2) the
+   same fit through ``PrefetchSequencer`` over a CPU sequencer that builds
+   its batches pinned (the History equal to (1)'s at rtol 1e-5); (3) an LGNN of 3 flagship layers (d_pad
+   16, 32, 48) in serial mode, 2 epochs a layer with validation,
+   ``bake_batch_size=1000``, ``evaluate`` and ``predict``; layer 0's bake
+   of the training set on the card against the CPU's from the same weights
+   (rtol 1e-5, atol 1e-5, with the bf16 control); the strip kernel bit for bit against its plain
+   version at d 16/32/48 on a sequencer batch's operator, both directions;
+   (4) ``SingleGraphSequencer`` over phase 14's 500k-node graph (batches
+   of 100,000 nodes, ``agg_dtype='auto'``) for one epoch of the node model
+   (its first step's loss against the CPU's at rtol 1e-5), and
+   ``TransductiveSingleGraphSequencer`` (rate 0.5) training a 2-type
+   composite node model one epoch over the same graph.  Launches counted
+   every leg.
 
 Then the phase times, one JSON line listing the kernels, the card line
 again, and as the last line ``{"ok": true, "device": {...}}``.  The full log also goes to
@@ -1781,6 +1803,326 @@ def model_family_section(card, sample, b_bench, b_bench_cpu):
     return out
 
 
+def same_batch(a, b, what):
+    """Two batches equal field for field whatever their devices: the same
+    tree structure and static fields, every tensor bit for bit, the same
+    host-side rows."""
+    import torch
+    import torch.utils._pytree as pytree
+    from gnnkeras_tpu_torch.utils.pytree import static_signature
+
+    la, spec_a = pytree.tree_flatten(a)
+    lb, spec_b = pytree.tree_flatten(b)
+    assert static_signature(spec_a) == static_signature(spec_b), what
+    assert np.array_equal(a.host_pred_rows, b.host_pred_rows), what
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x.cpu(), y.cpu()), what
+
+
+class timed_rebuilds:
+    """Within it, a sequencer's background rebuilds are timed (``build_s``,
+    in the thread) and so is each wait for one, by ``__getitem__`` or at the
+    end of ``fit`` (``wait_s``: the host seconds the fit waited)."""
+
+    def __init__(self, seq):
+        self.seq, self.build_s, self.wait_s = seq, [], []
+
+    def __enter__(self):
+        seq, real_build, real_join = self.seq, self.seq.build_batches, self.seq.wait_for_rebuild
+
+        def build():
+            t = time.perf_counter()
+            real_build()
+            self.build_s.append(time.perf_counter() - t)
+
+        def join():
+            pending = seq._pending_build is not None
+            t = time.perf_counter()
+            real_join()
+            if pending:
+                self.wait_s.append(time.perf_counter() - t)
+
+        seq.build_batches, seq.wait_for_rebuild = build, join
+        return self
+
+    def __exit__(self, *exc):
+        del self.seq.build_batches, self.seq.wait_for_rebuild
+        return False
+
+
+class step_losses:
+    """Within it, every train step's loss is recorded (``losses``), read
+    off the step's log sums."""
+
+    def __enter__(self):
+        import gnnkeras_tpu_torch.training.trainer as T
+
+        self._trainer, self._real, self.losses = T, T.train_step, []
+
+        def step(model, batch, generator=None):
+            logs, aux = self._real(model, batch, generator)
+            self.losses.append(float(logs["loss_sum"] / logs["count"]))
+            return logs, aux
+
+        T.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self._trainer.train_step = self._real
+        return False
+
+
+def transductive_cgnn(device, seed=0):
+    """A CompositeGNNnodeBased over a transduction of the large graph: 2
+    node types (label widths 8 and 10, the target appended to the
+    transductive nodes), dim_state 0 (the state is the 10-wide label), per
+    type BatchNorm → Dense(d_t + 40 → 10, selu), BatchNorm → Dense(10 → 2,
+    softmax), 5 iterations, threshold 0."""
+    from gnnkeras_tpu_torch import MLP, CompositeGNNnodeBased
+
+    dims, width, da = (8, 10), 10, 2
+    nets = [MLP((d_t + 2 * width + sum(dims) + da,), [width], "selu", kernel_initializer="lecun_normal",
+                bias_initializer="lecun_normal") for d_t in dims]
+    out = MLP((width,), [2], "softmax", kernel_initializer="glorot_normal", bias_initializer="glorot_normal")
+    return CompositeGNNnodeBased(nets, out, 0, 5, 0.0).build(seed=seed, device=device)
+
+
+def pipeline_section(card, g_large):
+    """Phase 19: the data pipeline and the fit loop on the card (module
+    docstring).  ``g_large`` is phase 14's 500k-node graph.  Returns the
+    launches and kernel checks of the kernels line."""
+    import torch
+    from gnnkeras_tpu_torch import kernels
+    from gnnkeras_tpu_torch.data import (MultiGraphSequencer, PrefetchSequencer, SingleGraphSequencer,
+                                         TransductiveSingleGraphSequencer, dataset_splits)
+    from gnnkeras_tpu_torch.data.synthetic import flagship_gnn, flagship_lgnn, large_graph_gnn, random_molecules
+    from gnnkeras_tpu_torch.training.callbacks import CSVLogger, EarlyStopping, LambdaCallback, ReduceLROnPlateau
+    from gnnkeras_tpu_torch.training.serial import _bake_graphs
+    from gnnkeras_tpu_torch.training.trainer import train_step
+
+    out, shares = {}, {}
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)  # the CSV logs' directory
+
+    def share(a, b, rtol, atol):
+        return float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+
+    t0 = time.perf_counter()
+    molecules = random_molecules(4337, seed=0, min_nodes=5, max_nodes=56)
+    train_g, test_g, val_g = dataset_splits(molecules, seed=0)
+    assert (len(train_g), len(test_g), len(val_g)) == (2837, 750, 750)
+    kw = dict(batch_size=1000, slot_pack=128, strip_dtype="int8")
+
+    def sequencers(device, graphs=train_g, shuffle=True, pin_memory=False):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # parallel arcs: the bf16 latch, as in JAX
+            return MultiGraphSequencer(graphs, "g", "average", shuffle=shuffle, device=device,
+                                       pin_memory=pin_memory, **kw)
+
+    seq, twin = sequencers("cuda"), sequencers("cpu")
+    val_seq, test_seq = sequencers("cuda", val_g, False), sequencers("cuda", test_g, False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for i in range(len(seq)):
+        same_batch(seq[i], twin[i], f"epoch 0 batch {i}")
+    storage = str(seq[0].strip.strip.dtype).replace("torch.", "")
+    emit({"phase": "pipeline_data", "graphs": len(molecules), "train_val_test": [len(train_g), len(val_g),
+          len(test_g)], "nodes": int(sum(g.nodes.shape[0] for g in molecules)), "batches": len(seq),
+          "padded_nodes": seq._pad_nodes, "strip_storage_latch": storage,
+          "int8_degraded": seq._strip_scale_degraded, "residual_blocks": seq._pad_strip_res,
+          "host_build_s": build_s})
+
+    # -- leg 1: the flagship through the sequencer, with validation and callbacks --
+    def callbacks(csv_name, epoch_ends):
+        return [EarlyStopping(patience=2, restore_best_weights=True), ReduceLROnPlateau(patience=1),
+                CSVLogger(os.path.join(REPO, "chiprun_out", csv_name)),
+                LambdaCallback(on_train_begin=lambda logs: epoch_ends.append(time.perf_counter()),
+                               on_epoch_end=lambda e, logs: epoch_ends.append(time.perf_counter()))]
+
+    def fit_leg(label, train_seq, seed_batches=None):
+        model = flagship_gnn("cuda", seed=0)
+        model.compile(optimizer="adam:0.01", loss="categorical_crossentropy", metrics=["accuracy"])
+        ends = []
+        cbs = callbacks(f"pipeline_{label}.csv", ends)
+        if seed_batches is not None:
+            # the first epoch's rebuild, against the CPU twin shuffled from the same seed
+            cbs.append(LambdaCallback(on_epoch_end=lambda e, logs: e == 0 and seed_batches()))
+        np.random.seed(100)
+        kernels.reset_launches()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # the rebuilds' bf16 fallback, as above
+            history = model.fit(train_seq, epochs=3, validation_data=val_seq, callbacks=cbs, verbose=0)
+            torch.cuda.synchronize()
+        launched = expect_launches(strip_matmul=9 * 4 + 3 * 4, strip_matmul_t=9 * 4)
+        kernels.reset_launches()
+        ev = model.evaluate(test_seq)
+        pred = model.predict(test_seq)
+        torch.cuda.synchronize()
+        expect_launches(strip_matmul=8)
+        assert pred.shape == (750, 2) and np.isfinite(pred).all() and np.isfinite(list(ev.values())).all()
+        losses = history["loss"]
+        assert len(losses) == 3 and np.isfinite(losses).all() and np.isfinite(history["val_loss"]).all()
+        return {"history": history.history, "launches": launched, "evaluate": ev,
+                "epoch_s": list(np.diff(ends)), "fit_s": ends[-1] - ends[0]}
+
+    def compare_rebuild():
+        for i in range(len(seq)):
+            same_batch(seq[i], twin[i], f"epoch 1 batch {i}")
+        out["rebuild_equal"] = True
+
+    np.random.seed(100)
+    twin.on_epoch_end()  # the twin's first shuffle, from the seed the card fit starts at
+    twin.wait_for_rebuild()
+    with timed_rebuilds(seq) as rebuilds:
+        leg1 = fit_leg("sequencer", seq, compare_rebuild)
+    assert out.get("rebuild_equal"), "the epoch-1 batches were not compared"
+    leg1.update(rebuild_build_s=rebuilds.build_s, rebuild_wait_s=rebuilds.wait_s)
+    emit({"phase": "pipeline_sequencer_fit", "model": "flagship", "storage": storage, **leg1,
+          "launches_per_train_step": {"strip_matmul": 4, "strip_matmul_t": 4}, "card": card})
+
+    # -- leg 2: the same fit through the CUDA-stream prefetcher, over batches
+    # built pinned on the CPU ------------------------------------------------------
+    prefetch = PrefetchSequencer(sequencers("cpu", pin_memory=True), lookahead=2)
+    leg2 = fit_leg("prefetch", prefetch)
+    for key in leg1["history"]:
+        np.testing.assert_allclose(leg2["history"][key], leg1["history"][key], rtol=1e-5, err_msg=key)
+    shares["prefetch_history"] = max(share(np.array(leg2["history"][k]), np.array(leg1["history"][k]), 1e-5, 0.0)
+                                     for k in leg1["history"])
+    emit({"phase": "pipeline_prefetch_fit", "model": "flagship", **leg2, "epoch_s_direct": leg1["epoch_s"],
+          "history_share": shares["prefetch_history"], "card": card})
+
+    # -- leg 3: the starter's LGNN in serial mode ----------------------------------
+    for d in (16, 32, 48):
+        for name in ("strip_matmul", "strip_matmul_t"):
+            res = check_strip(seq[0].strip, "sequencer_batch", timed=True, name=name, d=d)
+            assert res["max_abs_diff"] == 0.0, res  # bit-equal to the plain version
+            out[("check", d, name)] = res
+    lgnn = flagship_lgnn("cuda", seed=0, layers=3)
+    lgnn.compile(optimizer="adam:0.01", loss="categorical_crossentropy", metrics=["accuracy"],
+                 training_mode="serial", average_st_grads=True)
+    serial_seq, serial_val = sequencers("cuda"), sequencers("cuda", val_g, False)
+    widths = strip_widths()
+    t = time.perf_counter()
+    np.random.seed(200)
+    with widths, warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        histories = lgnn.fit(serial_seq, epochs=2, validation_data=serial_val, verbose=0, bake_batch_size=1000)
+        torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t
+    # each layer: 6 train steps (a peeled forward: the baked labels are host-summed), 2 validations
+    want = {(name, d): n for d in (16, 32, 48) for name, n in (("strip_matmul", 32), ("strip_matmul_t", 24))}
+    assert widths.tally == want, widths.tally
+    out["serial_widths"] = widths.tally
+    kernels.reset_launches()
+    ev = lgnn.evaluate(test_seq)
+    pred = lgnn.predict(test_seq)
+    torch.cuda.synchronize()
+    expect_launches(strip_matmul=2 * (4 + 5 + 5))  # layers 1-2 read the layer below: no peel
+    assert pred.shape == (750, 2) and np.isfinite(pred).all() and np.isfinite(list(ev.values())).all()
+    for h in histories:
+        assert np.isfinite(h["loss"]).all() and np.isfinite(h["val_loss"]).all()
+    # layer 0's bake of the training set, card against CPU from the same weights
+    twin_lgnn = flagship_lgnn("cpu", seed=0, layers=3)
+    twin_lgnn.load_state_dict({k: v.cpu() for k, v in lgnn.state_dict().items()})
+    layer0 = {k: v.clone() for k, v in lgnn.gnns[0].state_dict().items()}
+    t = time.perf_counter()
+    baked = _bake_graphs(lgnn, lgnn.gnns[0], train_g, train_g, 1000)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t
+    baked_cpu = _bake_graphs(twin_lgnn, twin_lgnn.gnns[0], train_g, train_g, 1000)
+    a = np.concatenate([g.nodes for g in baked])
+    b = np.concatenate([g.nodes for g in baked_cpu])
+    # the bake runs the plain BCSR route (as the JAX package bakes), whose
+    # block products (a batched matmul) sum in another order on the card
+    # than on the CPU (taking the per-tile sums in the CPU's order leaves
+    # the difference as it is, PERF.md §6); 5 training-mode iterations of
+    # states of magnitude ~1-4: held at phase 14's state tolerance (rtol
+    # 1e-5, atol 1e-5; phase 4's atol 1e-6 gives share 2.41), with the bf16
+    # control that must fail it
+    shares["serial_bake_phase4"] = share(a, b, 1e-5, 1e-6)
+    shares["serial_bake"] = share(a, b, 1e-5, 1e-5)
+    stats = {k: v.cpu().numpy() for k, v in lgnn.gnns[0].named_buffers()}
+    stats_cpu = {k: v.numpy() for k, v in twin_lgnn.gnns[0].named_buffers()}
+    shares["serial_bake_stats"] = max(share(stats[k], stats_cpu[k], 1e-5, 1e-6) for k in stats)
+    lgnn.gnns[0].load_state_dict(layer0)
+    with bf16_aggregation():
+        bad = np.concatenate([g.nodes for g in _bake_graphs(lgnn, lgnn.gnns[0], train_g, train_g, 1000)])
+    shares["serial_bake_control"] = share(bad, b, 1e-5, 1e-5)
+    emit({"phase": "pipeline_serial_lgnn", "layers": 3, "d_pad": [16, 32, 48], "epochs_per_layer": 2,
+          "histories": [h.history for h in histories], "evaluate": ev, "fit_s": serial_s,
+          "launches_per_layer_step": {f"d{d}": {"strip_matmul": 4, "strip_matmul_t": 4} for d in (16, 32, 48)},
+          "strip_tally": {f"{n}_d{d}": c for (n, d), c in widths.tally.items()}, "bake_s": bake_s,
+          "bake_tolerance": [1e-5, 1e-5], "bake_share": shares["serial_bake"],
+          "bake_phase4_share": shares["serial_bake_phase4"], "bake_control_share": shares["serial_bake_control"],
+          "bake_stats_share": shares["serial_bake_stats"], "bake_max_abs_diff": float(np.abs(a - b).max()),
+          "card": card})
+    assert shares["serial_bake"] <= 1.0 and shares["serial_bake_stats"] <= 1.0, shares
+    assert shares["serial_bake_control"] > 1.0, shares
+    del lgnn, twin_lgnn, seq, twin, prefetch, serial_seq, serial_val
+    torch.cuda.empty_cache()
+
+    # -- leg 4: one large graph -------------------------------------------------------
+    t = time.perf_counter()
+    single = SingleGraphSequencer(g_large, "n", batch_size=100_000, agg_dtype="auto", device="cuda")
+    torch.cuda.synchronize()
+    single_build_s = time.perf_counter() - t
+    assert len(single) == 5 and type(single[0].bcsr).__name__ == "BandedOperator"
+    nd = len(single[0].bcsr.diags)
+    diag0 = single[0].bcsr.diags[single[0].bcsr.offsets.index(0)]
+    out["single_checks"] = {name: check_strip(diag0, "single_graph_sequencer_diagonal_0", timed=True, name=name, d=8)
+                            for name in ("strip_matmul", "strip_matmul_t")}
+    model = large_graph_gnn("cuda", seed=0)
+    model.compile(optimizer="adam:0.01", loss="mse")
+    first_cpu = single[0].to("cpu")
+    np.random.seed(300)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    with step_losses() as steps:
+        history = model.fit(single, epochs=1, verbose=0)
+        torch.cuda.synchronize()
+    single_fit_s = time.perf_counter() - t
+    out["single_launches"] = expect_launches(strip_matmul=5 * 4 * nd, strip_matmul_t=5 * 4 * nd)
+    model_cpu = large_graph_gnn("cpu", seed=0)
+    model_cpu.compile(optimizer="adam:0.01", loss="mse")
+    logs_cpu, _ = train_step(model_cpu, first_cpu, model_cpu.next_rng())
+    loss_cpu = float(logs_cpu["loss_sum"] / logs_cpu["count"])
+    np.testing.assert_allclose(steps.losses[0], loss_cpu, rtol=1e-5)
+    shares["single_first_loss"] = share(np.array(steps.losses[0]), np.array(loss_cpu), 1e-5, 0.0)
+    assert len(steps.losses) == 5 and np.isfinite(steps.losses).all()
+    del single, first_cpu, model, model_cpu
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    np.random.seed(400)
+    trans = TransductiveSingleGraphSequencer(g_large, "n", 0.5, batch_size=100_000, agg_dtype="auto",
+                                             device="cuda")
+    torch.cuda.synchronize()
+    trans_build_s = time.perf_counter() - t
+    cgnn = transductive_cgnn("cuda", seed=0)
+    cgnn.compile(optimizer="adam:0.01", loss="mse")
+    kernels.reset_launches()
+    t = time.perf_counter()
+    with step_losses() as trans_steps:
+        trans_hist = cgnn.fit(trans, epochs=1, verbose=0)  # the epoch's end re-transduces and rebuilds
+        torch.cuda.synchronize()
+    trans_fit_s = time.perf_counter() - t
+    out["transductive_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    assert out["transductive_launches"].get("strip_matmul", 0) > 0 and \
+        out["transductive_launches"].get("strip_matmul_t", 0) > 0, out["transductive_launches"]
+    assert len(trans_steps.losses) == len(trans) and np.isfinite(trans_hist["loss"]).all()
+    emit({"phase": "pipeline_single_graph", "nodes": int(g_large.nodes.shape[0]), "batches": 5, "diagonals": nd,
+          "host_build_s": single_build_s, "fit_s": single_fit_s, "step_losses": steps.losses,
+          "first_step_loss_cpu": loss_cpu, "first_step_loss_share": shares["single_first_loss"],
+          "launches": out["single_launches"], "history": history.history,
+          "transductive": {"types": 2, "host_build_s": trans_build_s, "fit_s": trans_fit_s,
+                           "batches": len(trans), "step_losses": trans_steps.losses,
+                           "launches": out["transductive_launches"]},
+          "card": card})
+    del trans, cgnn
+    torch.cuda.empty_cache()
+    out["leg1"], out["shares"] = leg1, shares
+    return out
+
+
 def mps_probe():
     """Can an MPS server serve this card?  Starts the MPS control daemon (pipe
     and log directories under the checkout's ``gnnkeras_tpu_torch/_build/``),
@@ -2261,6 +2603,11 @@ def main():
     t_phase = time.perf_counter()
     family = model_family_section(card, sample, b_bench, b_bench_cpu)
     times["model_family"] = time.perf_counter() - t_phase
+
+    # -- 19. the data pipeline and the fit loop --------------------------------------
+    t_phase = time.perf_counter()
+    pipeline = pipeline_section(card, large["graph"])
+    times["pipeline"] = time.perf_counter() - t_phase
     emit({"phase": "timing", "phase_s": times, "total_s": time.perf_counter() - t_start})
 
     # -- kernels, card, verdict ----------------------------------------------
@@ -2365,6 +2712,17 @@ def main():
               family["arc_fwd"]["launches"]["incidence_select"], sel_res),
         entry("incidence_scatter_typed_arc_cgnn", inc_src, "gnnkeras_tpu/ops/incidence.py:375",
               family["arc_step"]["incidence_scatter"], scatter_res),
+        # phase 19, rows 1/1b on the data pipeline's paths: a sequencer batch's
+        # own operator at the flagship's d 16 (launches: the sequencer fit of
+        # leg 1) and the serial LGNN's d 32 and 48 (its widths' tallies); the
+        # single graph's banded diagonal through SingleGraphSequencer
+        *[entry(f"{name}_sequencer_d{d}", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+                pipeline["leg1"]["launches"][name] if d == 16 else pipeline["serial_widths"][(name, d)],
+                pipeline[("check", d, name)])
+          for d in (16, 32, 48) for name in ("strip_matmul", "strip_matmul_t")],
+        *[entry(f"{name}_single_graph", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+                pipeline["single_launches"][name], pipeline["single_checks"][name])
+          for name in ("strip_matmul", "strip_matmul_t")],
     ]})
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl"), "w") as f:

@@ -36,6 +36,15 @@ _EXPORTS = {
     "GNNnodeBased": "gnnkeras_tpu_torch.models.gnn",
     "MLP": "gnnkeras_tpu_torch.models.mlp",
     "get_inout_dims": "gnnkeras_tpu_torch.models.mlp",
+    "MultiGraphSequencer": "gnnkeras_tpu_torch.data.sequencers",
+    "SingleGraphSequencer": "gnnkeras_tpu_torch.data.sequencers",
+    "CompositeMultiGraphSequencer": "gnnkeras_tpu_torch.data.sequencers",
+    "CompositeSingleGraphSequencer": "gnnkeras_tpu_torch.data.sequencers",
+    "PrefetchSequencer": "gnnkeras_tpu_torch.data.prefetch",
+    "TransductiveMultiGraphSequencer": "gnnkeras_tpu_torch.data.transductive",
+    "TransductiveSingleGraphSequencer": "gnnkeras_tpu_torch.data.transductive",
+    "load_mutag": "gnnkeras_tpu_torch.data.mutag",
+    "load_tu_dataset": "gnnkeras_tpu_torch.data.mutag",
     "MicroBatcher": "gnnkeras_tpu_torch.serving",
     "Predictor": "gnnkeras_tpu_torch.serving",
     "export_forward": "gnnkeras_tpu_torch.serving",

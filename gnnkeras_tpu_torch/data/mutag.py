@@ -1,0 +1,199 @@
+"""TU-format dataset loaders (Mutagenicity and any standard TU dump),
+counterpart of ``gnnkeras_tpu.data.mutag``.
+
+Parses the TU format into per-graph GraphObjects / CompositeGraphObjects
+with one-hot node (14), edge (3) and target (2) labels, following the
+reference's procedure step by step, its global edge-row ``np.unique``
+re-sort included, so the dataset is the JAX package's, array for array.
+The integer files are read with ``np.loadtxt`` (the JAX package's native
+parser gives the same values; the port's copy of it is ROADMAP queue 11).
+Nothing is downloaded: ``load_mutag`` raises ``FileNotFoundError`` when the
+dump is absent.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from gnnkeras_tpu_torch.graph.graph import CompositeGraphObject, GraphObject
+
+# a dump elsewhere is passed as ``path``
+_DEFAULT_PATHS = ("MUTAG_raw",)
+
+
+def _one_hot(labels: np.ndarray) -> np.ndarray:
+    # rank-based, so 1-based or signed TU label alphabets (PROTEINS, -1/1
+    # dumps, ...) one-hot correctly; identical to the reference's direct
+    # indexing for 0-based contiguous labels like Mutagenicity's
+    unique, inv = np.unique(labels, return_inverse=True)
+    out = np.zeros((labels.shape[0], len(unique)), dtype=int)
+    out[np.arange(out.shape[0]), inv] = 1
+    return out
+
+
+def load_mutag(
+    path: Optional[str] = None,
+    composite: bool = False,
+    verbose: bool = False,
+) -> List[GraphObject]:
+    """Load the 4,337 Mutagenicity graphs as graph-focused GraphObjects
+    (CompositeGraphObjects with a single node type if ``composite``)."""
+    if path is None:
+        for candidate in _DEFAULT_PATHS:
+            if os.path.isdir(candidate):
+                path = candidate
+                break
+        else:
+            raise FileNotFoundError(f"MUTAG_raw not found in {_DEFAULT_PATHS}")
+    return load_tu_dataset(path, prefix="Mutagenicity", composite=composite, verbose=verbose)
+
+
+def load_tu_dataset(
+    path: str,
+    prefix: str,
+    composite: bool = False,
+    verbose: bool = False,
+) -> List[GraphObject]:
+    """Load ANY TU-format graph-classification dump (the standard 5/6-file
+    layout used by Mutagenicity, ENZYMES, PROTEINS, NCI1, ...:
+    ``{prefix}_edges.txt``, ``{prefix}_edge_labels.txt`` (optional),
+    ``{prefix}_node_labels.txt``, ``{prefix}_graph_indicator.txt``,
+    ``{prefix}_graph_labels.txt``) into graph-focused GraphObjects with
+    one-hot node/edge/target labels, following the reference loader's
+    procedure (load_MUTAG.py:1-60).  Datasets without edge labels get a
+    constant single-column edge feature."""
+    if path[-1] != "/":
+        path += "/"
+
+    def _load_int_file(p: str, columns: int = 1) -> np.ndarray:
+        return np.loadtxt(p, dtype=int, delimiter="," if columns > 1 else None, ndmin=2 if columns > 1 else 1)
+
+    edges_ids = _load_int_file(path + f"{prefix}_edges.txt", columns=2)
+    graph_of_node = _load_int_file(path + f"{prefix}_graph_indicator.txt")
+    graph_targets = _load_int_file(path + f"{prefix}_graph_labels.txt")
+    nl_path = path + f"{prefix}_node_labels.txt"
+    node_labels = _load_int_file(nl_path) if os.path.exists(nl_path) else None
+    el_path = path + f"{prefix}_edge_labels.txt"
+    if os.path.exists(el_path):
+        edges_labels = _load_int_file(el_path)
+    else:
+        edges_labels = np.zeros(edges_ids.shape[0], dtype=int)
+    # optional continuous node features ({prefix}_node_attributes.txt, float
+    # CSV rows — PROTEINS/ENZYMES-style); concatenated after the label one-hot
+    na_path = path + f"{prefix}_node_attributes.txt"
+    node_attrs = np.loadtxt(na_path, dtype=float, delimiter=",", ndmin=2) if os.path.exists(na_path) else None
+    if node_labels is None and node_attrs is None:
+        raise FileNotFoundError(f"neither {nl_path} nor {na_path} exists")
+
+    # per-graph node-index boundaries (graph_indicator is sorted).
+    _, first = np.unique(graph_of_node, return_index=True)
+    bounds = np.concatenate([first, [len(graph_of_node)]]).tolist()
+
+    feats = []
+    if node_labels is not None:
+        feats.append(_one_hot(node_labels).astype(float))
+    if node_attrs is not None:
+        feats.append(node_attrs)
+    node_feat = feats[0] if len(feats) == 1 else np.concatenate(feats, axis=1)
+    nodes_per_graph = [node_feat[i:j] for i, j in zip(bounds[:-1], bounds[1:])]
+
+    # the reference re-sorts edge rows globally before splitting
+    # (load_MUTAG.py:29); membership/labels are then selected on the sorted
+    # order — reproduced for dataset parity.  The reference scans every
+    # graph's node range over every edge (O(G·E), load_MUTAG.py:31-34); the
+    # ranges are disjoint and sorted, so one searchsorted per endpoint gives
+    # the identical membership in O(E log G) (~100x faster on Mutagenicity).
+    edges_ids = np.unique(edges_ids, axis=0)
+    edge_oh = _one_hot(edges_labels)
+    bounds_arr = np.asarray(bounds)
+    # graph of endpoint v (1-based): the k with bounds[k] < v <= bounds[k+1]
+    gid_src = np.searchsorted(bounds_arr, edges_ids[:, 0], side="left") - 1
+    gid_dst = np.searchsorted(bounds_arr, edges_ids[:, 1], side="left") - 1
+    # an edge belongs to graph k iff BOTH endpoints fall in k's range — same
+    # predicate as the reference's per-range AND; cross-graph rows (none in
+    # valid TU data) match no range and are dropped, as the reference does.
+    gid = np.where(gid_src == gid_dst, gid_src, len(bounds))
+    order = np.argsort(gid, kind="stable")  # per-graph global sort order kept
+    counts = np.bincount(gid[order], minlength=len(bounds))[: len(bounds) - 1]
+    order = order[: int(counts.sum())]  # invalid rows sorted last — drop them
+    splits = np.cumsum(counts)[:-1]
+
+    # relabel endpoints by rank among the node ids present in each graph's
+    # edges (the reference's per-graph np.unique remap, load_MUTAG.py:36-38)
+    # — computed in ONE vectorized pass: graphs own disjoint 1-based id
+    # ranges, so rank(v in graph k) = #present ids in (bounds[k], v] − 1,
+    # read off a global presence prefix-sum.  Identical to per-graph
+    # np.unique + searchsorted, without 2·G small sorts.
+    present = np.zeros(len(graph_of_node) + 1, dtype=np.int64)
+    present[edges_ids[order].ravel()] = 1
+    csum = np.cumsum(present)
+    base = csum[bounds_arr[gid[order]]]
+    new_ids = csum[edges_ids[order]] - base[:, None] - 1
+    rows_all = np.concatenate([new_ids, edge_oh[order]], axis=1)
+    edges = [rows_all[i:j] for i, j in zip(np.r_[0, splits], np.r_[splits, len(rows_all)])]
+
+    targets = _one_hot(graph_targets)
+
+    graphs: List[GraphObject] = []
+    # rows are already unique (global pair dedup) and lexicographically
+    # sorted per graph (monotonic relabel of the globally sorted pairs), so
+    # the constructors can skip their O(A log A) canonicalisation
+    for e, n, t in zip(edges, nodes_per_graph, targets):
+        if composite:
+            graphs.append(
+                CompositeGraphObject(
+                    arcs=e,
+                    nodes=n,
+                    targets=t[np.newaxis, ...],
+                    focus="g",
+                    type_mask=np.ones((n.shape[0], 1), dtype=bool),
+                    dim_node_label=(n.shape[1],),
+                    arcs_canonical=True,
+                )
+            )
+        else:
+            graphs.append(
+                GraphObject(arcs=e, nodes=n, targets=t[np.newaxis, ...], focus="g", arcs_canonical=True)
+            )
+    if verbose:
+        print(f"Loaded {len(graphs)} {prefix} graphs from {path}")
+    return graphs
+
+
+def mutag_splits(
+    graphs: List[GraphObject], seed: Optional[int] = None
+) -> Tuple[List[GraphObject], List[GraphObject], List[GraphObject]]:
+    """The reference starters' split: shuffle, then train=[:-1500],
+    test=[-1500:-750], val=[-750:] (starter.py:63-66)."""
+    graphs = list(graphs)
+    rng = np.random.default_rng(seed)
+    rng.shuffle(graphs)
+    return graphs[:-1500], graphs[-1500:-750], graphs[-750:]
+
+
+def dataset_splits(
+    graphs: List[GraphObject],
+    seed: Optional[int] = None,
+    test_frac: float = 750 / 4337,
+    val_frac: float = 750 / 4337,
+) -> Tuple[List[GraphObject], List[GraphObject], List[GraphObject]]:
+    """Proportional shuffle-split for ANY dataset size (the reference's fixed
+    750/750 tail slices, starter.py:63-66, only make sense at Mutagenicity's
+    4,337 graphs — on smaller TU dumps they would leave an empty train set).
+    Defaults reproduce the reference's proportions; always keeps ≥1 graph in
+    every non-empty role."""
+    graphs = list(graphs)
+    n = len(graphs)
+    n_te = int(round(n * test_frac))
+    n_va = int(round(n * val_frac))
+    if n - n_te - n_va < 1:
+        raise ValueError(
+            f"splits leave no training graphs: {n} total, test={n_te}, val={n_va} "
+            f"(test_frac={test_frac}, val_frac={val_frac})"
+        )
+    rng = np.random.default_rng(seed)
+    rng.shuffle(graphs)
+    return graphs[: n - n_te - n_va], graphs[n - n_te - n_va : n - n_va], graphs[n - n_va :]

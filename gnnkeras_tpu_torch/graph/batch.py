@@ -32,8 +32,8 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _move(x, device):
-    return x.to(device) if hasattr(x, "to") else x
+def _move(x, device, non_blocking=False):
+    return x.to(device, non_blocking=non_blocking) if hasattr(x, "to") else x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,9 +64,9 @@ class CompactReadout:
             flat = flat[:-1]
         return flat
 
-    def to(self, device) -> "CompactReadout":
+    def to(self, device, non_blocking: bool = False) -> "CompactReadout":
         return dataclasses.replace(
-            self, **{f.name: _move(getattr(self, f.name), device) for f in dataclasses.fields(self)}
+            self, **{f.name: _move(getattr(self, f.name), device, non_blocking) for f in dataclasses.fields(self)}
         )
 
 
@@ -159,11 +159,12 @@ class GraphBatch:
     def replace(self, **kwargs) -> "GraphBatch":
         return dataclasses.replace(self, **kwargs)
 
-    def to(self, device) -> "GraphBatch":
-        """The same batch with every tensor and operator on ``device``."""
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
+        """The same batch with every tensor and operator on ``device``
+        (``non_blocking``: copies from pinned memory run asynchronously)."""
         device = resolve_device(device)
         moved = {
-            f.name: _move(getattr(self, f.name), device)
+            f.name: _move(getattr(self, f.name), device, non_blocking)
             for f in dataclasses.fields(self)
             if f.name not in ("focus", "dim_node_label", "host_pred_rows")
         }

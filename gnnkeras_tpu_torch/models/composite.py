@@ -36,7 +36,7 @@ from torch import nn
 from gnnkeras_tpu_torch.graph.batch import GraphBatch
 from gnnkeras_tpu_torch.models.gnn import GNNnodeBased, aggregate_t, run_unfold_loops
 from gnnkeras_tpu_torch.models.mlp import MLP
-from gnnkeras_tpu_torch.ops.segment import segment_sum
+from gnnkeras_tpu_torch.ops.segment import segment_sum_ordered
 
 
 class CompositeGNNnodeBased(GNNnodeBased):
@@ -93,7 +93,8 @@ class CompositeGNNnodeBased(GNNnodeBased):
     def _aggregated_component(self, batch: GraphBatch) -> torch.Tensor:
         """``[Σ_{type-0 sources} w·nodes[:, :d_0] | ... | Σ_in w·arc labels]``
         (N, Σd_t + da): the batch's host-built sums when present, else the
-        per-type gated segment sums on the device."""
+        per-type gated segment sums on the device, added in arc order (the
+        same sums on the card as on the CPU)."""
         if batch.agg_component is not None:
             return batch.agg_component
         n = batch.num_nodes
@@ -102,7 +103,7 @@ class CompositeGNNnodeBased(GNNnodeBased):
         parts = []
         for t, d_t in enumerate(batch.dim_node_label):
             w_t = batch.arcnode_weight * src_type[:, t].to(batch.arcnode_weight.dtype)
-            parts.append(segment_sum(batch.nodes[src, :d_t] * w_t[:, None], batch.arc_dst, n))
+            parts.append(segment_sum_ordered(batch.nodes[src, :d_t] * w_t[:, None], batch.arc_dst, n))
         parts.append(self._agg_arcs(batch))
         return torch.cat(parts, dim=1)
 

@@ -9,8 +9,7 @@ Training modes (``compile(training_mode=...)``):
 - ``residual``: one step; the loss is the loss of the mean of the layers'
   outputs (the mean, as the reference's code computes, not a sum);
 - ``serial``: each layer fitted alone, its state and output baked into a
-  rebuilt dataset for the next; not ported yet (ROADMAP queue 4: it needs
-  the sequencers' ``copy`` / ``data`` / ``with_graphs``), so ``fit`` raises.
+  rebuilt dataset for the next (``training/serial.py``).
 
 Intermediate layers run the node-level output (``node_level_output``); the
 graph readout applies to their recorded outputs and to the last layer only.
@@ -66,8 +65,20 @@ class LGNN(GraphModel):
         return self.gnns[0].name == "graph"
 
     def init_parameters(self, generator: torch.Generator) -> None:
+        """Initialise every layer and mark it built: a layer's own ``build``
+        (serial training calls it) keeps the stack's weights.  Each layer
+        gets a random stream of its own seeded 0, as the JAX package's
+        layers keep the key ``PRNGKey(0)``."""
         for gnn in self.gnns:
             gnn.init_parameters(generator)
+            gnn.built, gnn._rng = True, torch.Generator().manual_seed(0)
+
+    def build(self, seed: int = 0, device=None) -> "LGNN":
+        """As ``GraphModel.build``; the layers take the stack's device."""
+        super().build(seed=seed, device=device)
+        for gnn in self.gnns:
+            gnn.device = self.device
+        return self
 
     def scale_state_grads(self, ks) -> None:
         """``average_st_grads``: each layer's state nets' gradients divided
@@ -152,10 +163,9 @@ class LGNN(GraphModel):
 
     def fit(self, *args, **kwargs):
         if self.training_mode == "serial":
-            raise NotImplementedError(
-                "LGNN serial training is not ported yet (ROADMAP queue 4: training/serial.py needs the "
-                "sequencers' copy / data / with_graphs)"
-            )
+            from gnnkeras_tpu_torch.training.serial import fit_serial
+
+            return fit_serial(self, *args, **kwargs)
         return super().fit(*args, **kwargs)
 
     def __repr__(self):

@@ -45,9 +45,10 @@ class BandedOperator:
     offsets: Tuple[int, ...]
     n_tiles: int
 
-    def to(self, device) -> "BandedOperator":
-        return dataclasses.replace(self, diags=tuple(d.to(device) for d in self.diags),
-                                   residual=None if self.residual is None else self.residual.to(device))
+    def to(self, device, non_blocking: bool = False) -> "BandedOperator":
+        mv = lambda x: x.to(device, non_blocking=non_blocking)
+        return dataclasses.replace(self, diags=tuple(mv(d) for d in self.diags),
+                                   residual=None if self.residual is None else mv(self.residual))
 
 
 register_tensor_dataclass(BandedOperator, static=("offsets", "n_tiles"))

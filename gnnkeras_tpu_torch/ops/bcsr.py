@@ -77,11 +77,9 @@ class BcsrMatrix:
     n_dst_tiles: int
     tile: int
 
-    def to(self, device) -> "BcsrMatrix":
-        return dataclasses.replace(
-            self, blocks=self.blocks.to(device), src_tile=self.src_tile.to(device),
-            dst_tile=self.dst_tile.to(device),
-        )
+    def to(self, device, non_blocking: bool = False) -> "BcsrMatrix":
+        mv = lambda x: x.to(device, non_blocking=non_blocking)
+        return dataclasses.replace(self, blocks=mv(self.blocks), src_tile=mv(self.src_tile), dst_tile=mv(self.dst_tile))
 
 
 register_tensor_dataclass(BcsrMatrix, static=("n_src_tiles", "n_dst_tiles", "tile"))
@@ -270,11 +268,10 @@ class QuantBcsr:
     n_dst_tiles: int
     tile: int
 
-    def to(self, device) -> "QuantBcsr":
-        return dataclasses.replace(
-            self, **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
-                     if isinstance(getattr(self, f.name), torch.Tensor)}
-        )
+    def to(self, device, non_blocking: bool = False) -> "QuantBcsr":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device, non_blocking=non_blocking) for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
 register_tensor_dataclass(QuantBcsr, static=("n_src_tiles", "n_dst_tiles", "tile"))

@@ -103,9 +103,10 @@ class IncidencePairs:
     def device(self) -> torch.device:
         return self.arc_ends.device
 
-    def to(self, device) -> "IncidencePairs":
-        return dataclasses.replace(self, arc_ends=self.arc_ends.to(device), node_start=self.node_start.to(device),
-                                   node_entry=self.node_entry.to(device))
+    def to(self, device, non_blocking: bool = False) -> "IncidencePairs":
+        mv = lambda x: x.to(device, non_blocking=non_blocking)
+        return dataclasses.replace(self, arc_ends=mv(self.arc_ends), node_start=mv(self.node_start),
+                                   node_entry=mv(self.node_entry))
 
 
 register_tensor_dataclass(IncidencePairs, static=("n_arc_tiles", "n_node_tiles", "n_live") + _PAIR_FIELDS,

@@ -81,8 +81,8 @@ class StripOperator:
     blocks: Optional[torch.Tensor] = None  # (Tb, TILE, TILE), mixed format
     blocks_scale: Optional[torch.Tensor] = None  # (Tb, TILE) f32 (int8 storage)
 
-    def to(self, device) -> "StripOperator":
-        mv = lambda x: None if x is None else x.to(device)
+    def to(self, device, non_blocking: bool = False) -> "StripOperator":
+        mv = lambda x: None if x is None else x.to(device, non_blocking=non_blocking)
         return dataclasses.replace(self, strip=mv(self.strip), residual=mv(self.residual), scale=mv(self.scale),
                                    blocks=mv(self.blocks), blocks_scale=mv(self.blocks_scale))
 

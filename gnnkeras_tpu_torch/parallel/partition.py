@@ -646,11 +646,14 @@ class PartitionedGNN:
         row's sample weight by its true class's.  Returns a ``History``;
         rank 0 of the group prints with ``verbose``."""
         from gnnkeras_tpu_torch.training.callbacks import History
-        from gnnkeras_tpu_torch.training.trainer import _class_weight_vector, _not_ported
+        from gnnkeras_tpu_torch.training.trainer import _class_weight_vector
 
-        _not_ported(checkpoint_dir=checkpoint_dir is not None, resume=resume,
-                    validation_data=validation_data is not None, callbacks=bool(callbacks),
-                    validation_freq=validation_freq != 1)
+        for name, used in (("checkpoint_dir", checkpoint_dir is not None), ("resume", resume),
+                           ("validation_data", validation_data is not None), ("callbacks", bool(callbacks)),
+                           ("validation_freq", validation_freq != 1)):
+            if used:
+                raise NotImplementedError(f"PartitionedGNN.fit({name}=...) is not ported yet (ROADMAP queue 5: "
+                                          "the fit surface through run_fit_loop)")
         self._require_collective("fit")
         gnn = self.gnn
         if gnn.optimizer is None:

@@ -14,16 +14,17 @@ losses (``parallel``) or on the loss of its layers' mean output
 (``residual``); evaluation and ``predict`` read its last layer, and
 ``average_st_grads`` divides each layer's state nets by that layer's k.
 
-``fit`` runs the per-batch path over any object with ``len``, ``[i]`` and
-``on_epoch_end`` that yields ``GraphBatch``es on the model's device.
-Validation, callbacks other than ``History``, checkpoints and resume, and
-the scanned-epoch path are ROADMAP queue 5 and raise
+``fit`` runs one ``train_step`` per batch over a sequencer (``data/``:
+``len``, ``[i]`` yielding ``GraphBatch``es on the model's device,
+``on_epoch_end``) through ``training/fit_loop.run_fit_loop``: validation
+every ``validation_freq`` epochs, callbacks, checkpoints and resume, as the
+JAX package's ``fit``.  The scanned-epoch path (``scan_batches=True``, a
+captured CUDA graph in the port) is ROADMAP queue 5 and raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -136,14 +137,6 @@ def _apply_class_weight(batch, cw_vec: torch.Tensor):
     return batch.replace(sample_weight=batch.sample_weight * cw_vec[cls])
 
 
-def _not_ported(**given) -> None:
-    for name, used in given.items():
-        if used:
-            raise NotImplementedError(
-                f"fit({name}=...) is not ported yet (ROADMAP queue 5: the fit surface)"
-            )
-
-
 def fit(
     model,
     sequencer,
@@ -153,25 +146,35 @@ def fit(
     verbose: int = 1,
     seed: int = 0,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
     resume: bool = False,
     scan_batches: Optional[bool] = None,
     class_weight: Optional[dict] = None,
     validation_freq: int = 1,
 ) -> History:
     """Keras-like fit loop over a sequencer of ``GraphBatch``es, one
-    ``train_step`` per batch.  ``class_weight`` ({class index: weight})
-    scales each supervised row's training loss by the weight of its true
-    class.  Returns a ``History`` of the per-epoch mean logs."""
-    _not_ported(validation_data=validation_data is not None, callbacks=bool(callbacks),
-                checkpoint_dir=checkpoint_dir is not None, resume=resume, scan_batches=scan_batches is True,
-                validation_freq=validation_freq != 1)
+    ``train_step`` per batch.  Returns a ``History`` of the per-epoch mean
+    logs.
+
+    ``class_weight`` ({class index: weight}) scales each supervised row's
+    training loss by the weight of its true class; validation is unaffected.
+    ``validation_data`` (a sequencer) is evaluated every ``validation_freq``
+    epochs (1-based: when ``(epoch + 1) % validation_freq == 0``) into
+    ``val_*`` logs.  With ``checkpoint_dir`` a resumable checkpoint
+    (``training/checkpoint.py``) is written every ``checkpoint_every``
+    epochs; ``resume=True`` restores the latest one and continues from the
+    epoch after it.  A sequencer's background rebuild, which the last
+    epoch's end starts, is joined before ``fit`` returns."""
+    from gnnkeras_tpu_torch.training.fit_loop import run_fit_loop
+
+    if scan_batches is True:
+        raise NotImplementedError("fit(scan_batches=True) is not ported yet (ROADMAP queue 5: a captured CUDA graph)")
     if model.optimizer is None:
         raise RuntimeError("call compile() before fit()")
     model.build(seed=seed)
     cw_vec = _class_weight_vector(class_weight, model.device) if class_weight else None
-    history = History()
-    for epoch in range(epochs):
-        t0 = time.perf_counter()
+
+    def run_epoch(epoch):
         accum = []
         for i in range(len(sequencer)):
             batch = sequencer[i]
@@ -180,12 +183,24 @@ def fit(
             logs, _ = train_step(model, batch, model.next_rng())
             accum.append(logs)
         sequencer.on_epoch_end()
-        logs = _reduce_logs(accum)
-        if verbose:
-            msg = " - ".join(f"{k}: {v:.4f}" for k, v in logs.items())
-            print(f"Epoch {epoch + 1}/{epochs} [{time.perf_counter() - t0:.2f}s] {msg}")
-        history.on_epoch_end(epoch, logs)
-    return history
+        return _reduce_logs(accum)
+
+    validate = None
+    if validation_data is not None:
+        validate = lambda: evaluate(model, validation_data, verbose=0, prefix="val_")
+
+    try:
+        return run_fit_loop(
+            model, epochs=epochs, run_epoch=run_epoch, validate=validate, callbacks=callbacks, verbose=verbose,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, resume=resume,
+            validation_freq=validation_freq,
+        )
+    finally:
+        # the last epoch's end started the next epoch's rebuild in a thread:
+        # it must not outlive the fit
+        wait = getattr(sequencer, "wait_for_rebuild", None)
+        if wait is not None:
+            wait()
 
 
 def evaluate(model, sequencer, verbose: int = 0, prefix: str = "") -> dict:

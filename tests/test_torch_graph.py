@@ -13,72 +13,14 @@ import pytest
 
 import gnnkeras_tpu.graph.batch as jbatch
 import gnnkeras_tpu.graph.packing as jpacking
-import gnnkeras_tpu.ops.bcsr as jbcsr
 import gnnkeras_tpu.ops.fused as jfused
 import gnnkeras_tpu_torch.graph.batch as tbatch
 import gnnkeras_tpu_torch.graph.packing as tpacking
-import gnnkeras_tpu_torch.ops.bcsr as tbcsr
 import gnnkeras_tpu_torch.ops.fused as tfused
-from torch_port_common import merged_pair, np_of, np_of_jax, raw_molecules, unique_pairs
-
-_ARRAYS = (
-    "nodes", "arc_src", "arc_dst", "arc_label", "arcnode_weight", "node_mask", "arc_mask",
-    "set_mask", "output_mask", "graph_of_node", "nodegraph_weight", "graph_mask", "targets",
-    "target_mask", "sample_weight", "agg_arc_labels", "agg_node_labels",
-)
-
-
-def _eq(t_arr, j_arr, what):
-    got, want = np_of(t_arr), np_of_jax(j_arr)
-    assert got.dtype == want.dtype, f"{what}: dtype {got.dtype} != {want.dtype}"
-    assert got.shape == want.shape, f"{what}: shape {got.shape} != {want.shape}"
-    assert np.array_equal(got, want), f"{what}: values differ"
-
-
-def _eq_padded(t_arr, j_arr, what):
-    """Port tiles equal JAX's first T tiles; JAX's extra tiles are zero."""
-    got, want = np_of(t_arr), np_of_jax(j_arr)
-    t = got.shape[0]
-    assert want.shape[0] >= t and got.shape[1:] == want.shape[1:], what
-    _eq(t_arr, j_arr[:t], what)
-    assert not np.any(want[t:]), f"{what}: JAX pad tiles are not zero"
-
-
-def _eq_bcsr(tm, jm, what):
-    if jm is None:
-        assert tm is None, what
-        return
-    for f in ("blocks", "src_tile", "dst_tile"):
-        _eq(getattr(tm, f), getattr(jm, f), f"{what}.{f}")
-    assert (tm.n_src_tiles, tm.n_dst_tiles, tm.tile) == (jm.n_src_tiles, jm.n_dst_tiles, jm.tile), what
-
-
-def _assert_batches_equal(tb, jb):
-    for name in _ARRAYS:
-        _eq(getattr(tb, name), getattr(jb, name), name)
-    assert tb.focus == jb.focus and tb.dim_node_label == jb.dim_node_label
-    np.testing.assert_array_equal(tb.host_pred_rows, jb.host_pred_rows)
-    _eq_bcsr(tb.bcsr, jb.bcsr, "bcsr")
-    if jb.bcsr is not None:
-        _eq_bcsr(tbcsr.transpose_bcsr(tb.bcsr), jbcsr.transpose_bcsr(jb.bcsr), "transpose_bcsr")
-    _eq_bcsr(tb.nodegraph_bcsr, jb.nodegraph_bcsr, "nodegraph_bcsr")
-    if jb.compact_readout is None:
-        assert tb.compact_readout is None
-    else:
-        for f in ("sel", "span_tile_sel", "span_group", "span_rows"):
-            _eq(getattr(tb.compact_readout, f), getattr(jb.compact_readout, f), f"compact_readout.{f}")
-        assert tb.compact_readout.n_span_pad == jb.compact_readout.n_span_pad
-    if jb.strip is None:
-        assert tb.strip is None
-    else:
-        _eq_padded(tb.strip.strip, jb.strip.strip, "strip")
-        if jb.strip.scale is None:
-            assert tb.strip.scale is None
-        else:
-            _eq_padded(tb.strip.scale, jb.strip.scale, "scale")
-        _eq_bcsr(tb.strip.residual, jb.strip.residual, "residual")
-        assert tb.strip.slot == jb.strip.slot == 128
-
+from torch_port_common import assert_batches_equal as _assert_batches_equal
+from torch_port_common import eq_array as _eq
+from torch_port_common import eq_padded as _eq_padded
+from torch_port_common import merged_pair, raw_molecules, unique_pairs
 
 # 110 molecules pack into > 16 tiles (the JAX strip pre-pads there), and a
 # 150-node graph spans two tiles (cross-tile residual, spanning readout)

@@ -32,8 +32,12 @@ def test_port_imports_no_jax():
     n_modules, bad = res.stdout.split()[0], res.stdout.strip().split(" ", 1)[1:]
     import gnnkeras_tpu_torch
 
-    expected = len(list(pkgutil.walk_packages(gnnkeras_tpu_torch.__path__, "gnnkeras_tpu_torch.")))
-    assert int(n_modules) == expected >= 15
+    names = {m.name for m in pkgutil.walk_packages(gnnkeras_tpu_torch.__path__, "gnnkeras_tpu_torch.")}
+    assert int(n_modules) == len(names) >= 15
+    # the data pipeline and the fit surface are among them
+    assert names >= {f"gnnkeras_tpu_torch.{m}" for m in (
+        "data.sequencers", "data.transductive", "data.prefetch", "data.mutag", "training.fit_loop",
+        "training.checkpoint", "training.calibrate", "training.serial", "training.callbacks")}
     assert bad == [], f"the port pulled in {bad}"
 
 
@@ -126,3 +130,23 @@ def test_partitioned_entry_points_raise_without_card(no_card):
     with pytest.raises(RuntimeError, match="cuda"):
         pg.shard(0)
     assert pg.shard(1, "cpu").nodes.device.type == "cpu"
+
+
+def test_pipeline_entry_points_raise_without_card(no_card):
+    """The sequencers and the prefetcher default to the card and refuse to
+    carry on on the CPU without one."""
+    from gnnkeras_tpu_torch.data import (PrefetchSequencer, MultiGraphSequencer, SingleGraphSequencer,
+                                         TransductiveMultiGraphSequencer)
+    from gnnkeras_tpu_torch.data.synthetic import large_banded_graph, random_molecules
+
+    graphs = random_molecules(n_graphs=3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        MultiGraphSequencer(graphs, "g", "average")
+    with pytest.raises(RuntimeError, match="cuda"):
+        SingleGraphSequencer(graphs[0], "g")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TransductiveMultiGraphSequencer([large_banded_graph(256, band=8)], "n", "average")
+    seq = MultiGraphSequencer(graphs, "g", "average", device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        PrefetchSequencer(seq)
+    assert seq[0].nodes.device.type == "cpu"

@@ -15,7 +15,7 @@ get_output:
   ks, new statistics, gradients) with ``average_st_grads`` (each layer's
   state nets over its own k) and an Adam step on them; one step through
   JAX's ``_train_step_body``; ``evaluate`` (scoring the last layer) and
-  ``predict``; ``serial`` raising ``NotImplementedError``; the ``convert``
+  ``predict``; ``serial`` handing over to ``training.serial``; the ``convert``
   round trip of both nested trees.
 
 At dim_state 10 each layer draws its own initial state: JAX's per-layer
@@ -229,11 +229,18 @@ def test_jax_train_step_body_evaluate_and_predict_match(setups, monkeypatch):
     np.testing.assert_allclose(pred, outs[-1].numpy()[rows], rtol=RTOL, atol=ATOL)
 
 
-def test_serial_mode_is_not_ported():
+def test_serial_mode_is_not_ported(monkeypatch):
+    """Serial mode is ported: ``fit`` hands the stack to
+    ``training.serial.fit_serial`` (held to the JAX package in
+    ``tests/test_torch_serial.py``); an unknown mode is refused."""
+    import gnnkeras_tpu_torch.training.serial as tserial
+
     _, tm = lgnn_pair(False, "g", 0, 2, seed=8)
     tm.compile(optimizer="adam", loss="categorical_crossentropy", training_mode="serial")
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        tm.fit(Batches([]), epochs=1)
+    calls = []
+    monkeypatch.setattr(tserial, "fit_serial", lambda model, seq, **kw: calls.append((model, seq, kw)) or "h")
+    seq = Batches([])
+    assert tm.fit(seq, epochs=3) == "h" and calls == [(tm, seq, {"epochs": 3})]
     with pytest.raises(AssertionError):
         tm.compile(training_mode="stacked")
 

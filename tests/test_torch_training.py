@@ -255,13 +255,21 @@ def test_predict_order_under_tile_packing(focus):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(validation_data=Batches([])), dict(callbacks=[object()]), dict(checkpoint_dir="ckpt"),
+    dict(validation_data=Batches([])), dict(callbacks=[ttr.History()]), dict(checkpoint_dir="ckpt"),
     dict(resume=True), dict(scan_batches=True), dict(validation_freq=2),
 ])
-def test_fit_surface_not_ported_yet(kwargs):
+def test_fit_surface_not_ported_yet(kwargs, tmp_path, monkeypatch):
+    """Of the fit surface only the scanned epoch (a captured CUDA graph)
+    is still to be ported and raises; validation, callbacks, checkpoints
+    and resume run (``tests/test_torch_fit_surface.py`` holds them to the
+    JAX package)."""
+    monkeypatch.chdir(tmp_path)  # a relative checkpoint_dir lands here
     _, tm = _compiled_pair()
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        tm.fit(Batches([]), **kwargs)
+    if "scan_batches" in kwargs:
+        with pytest.raises(NotImplementedError, match="queue 5"):
+            tm.fit(Batches([]), **kwargs)
+    else:
+        assert tm.fit(Batches([]), verbose=0, **kwargs).epoch == [0]
 
 
 def test_fit_and_evaluate_need_compile():

@@ -5,6 +5,8 @@ port's weights are the JAX model's, copied through
 ``gnnkeras_tpu_torch.convert.variables_from_jax``.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -433,3 +435,117 @@ def assert_stats(got, want_tree, rtol=1e-5, atol=1e-6):
     for name, w in want.items():
         assert tuple(got[name].shape) == tuple(w.shape), name
         np.testing.assert_allclose(got[name].detach().numpy(), w.numpy(), rtol=rtol, atol=atol, err_msg=name)
+
+
+# -- batches field by field -----------------------------------------------------
+
+_BATCH_ARRAYS = (
+    "nodes", "arc_src", "arc_dst", "arc_label", "arcnode_weight", "node_mask", "arc_mask",
+    "set_mask", "output_mask", "graph_of_node", "nodegraph_weight", "graph_mask", "targets",
+    "target_mask", "sample_weight", "agg_arc_labels", "agg_node_labels",
+)
+_PAIR_FIELDS = ("f_arc_tile", "f_node_tile", "f_cols_src", "f_cols_dst", "f_start")
+
+
+def eq_array(t_arr, j_arr, what):
+    """A port tensor equal to a JAX array: dtype, shape and values."""
+    got, want = np_of(t_arr), np_of_jax(j_arr)
+    assert got.dtype == want.dtype, f"{what}: dtype {got.dtype} != {want.dtype}"
+    assert got.shape == want.shape, f"{what}: shape {got.shape} != {want.shape}"
+    assert np.array_equal(got, want), f"{what}: values differ"
+
+
+def eq_padded(t_arr, j_arr, what):
+    """Port tiles equal JAX's first T tiles; JAX's extra tiles are zero."""
+    got, want = np_of(t_arr), np_of_jax(j_arr)
+    t = got.shape[0]
+    assert want.shape[0] >= t and got.shape[1:] == want.shape[1:], what
+    eq_array(t_arr, j_arr[:t], what)
+    assert not np.any(want[t:]), f"{what}: JAX pad tiles are not zero"
+
+
+def eq_bcsr(tm, jm, what):
+    if jm is None:
+        assert tm is None, what
+        return
+    for f in ("blocks", "src_tile", "dst_tile"):
+        eq_array(getattr(tm, f), getattr(jm, f), f"{what}.{f}")
+    assert (tm.n_src_tiles, tm.n_dst_tiles, tm.tile) == (jm.n_src_tiles, jm.n_dst_tiles, jm.tile), what
+
+
+def assert_batches_equal(tb, jb):
+    """A port batch (on the CPU) equal to a JAX batch, field by field: every
+    array bit for bit (the composite label sums at rtol 1e-6: both
+    accumulate in f64 in other orders), the operators (BCSR and its
+    transpose, readouts, strip and residual, incidence pairs) and the
+    host-side rows of the supervised entities."""
+    import gnnkeras_tpu.ops.bcsr as jbcsr
+    import gnnkeras_tpu_torch.ops.bcsr as tbcsr
+
+    for name in _BATCH_ARRAYS:
+        eq_array(getattr(tb, name), getattr(jb, name), name)
+    assert tb.focus == jb.focus and tb.dim_node_label == tuple(jb.dim_node_label)
+    np.testing.assert_array_equal(tb.host_pred_rows, jb.host_pred_rows)
+    eq_bcsr(tb.bcsr, jb.bcsr, "bcsr")
+    if jb.bcsr is not None:
+        eq_bcsr(tbcsr.transpose_bcsr(tb.bcsr), jbcsr.transpose_bcsr(jb.bcsr), "transpose_bcsr")
+    eq_bcsr(tb.nodegraph_bcsr, jb.nodegraph_bcsr, "nodegraph_bcsr")
+    if jb.compact_readout is None:
+        assert tb.compact_readout is None
+    else:
+        for f in ("sel", "span_tile_sel", "span_group", "span_rows"):
+            eq_array(getattr(tb.compact_readout, f), getattr(jb.compact_readout, f), f"compact_readout.{f}")
+        assert tb.compact_readout.n_span_pad == jb.compact_readout.n_span_pad
+    if jb.strip is None:
+        assert tb.strip is None
+    else:
+        eq_padded(tb.strip.strip, jb.strip.strip, "strip")
+        if jb.strip.scale is None:
+            assert tb.strip.scale is None
+        else:
+            eq_padded(tb.strip.scale, jb.strip.scale, "scale")
+        eq_bcsr(tb.strip.residual, jb.strip.residual, "residual")
+        assert tb.strip.slot == jb.strip.slot == 128
+    if jb.type_mask is None:
+        assert tb.type_mask is None and tb.agg_component is None
+    else:
+        eq_array(tb.type_mask, jb.type_mask, "type_mask")
+        np.testing.assert_allclose(tb.agg_component.numpy(), np.asarray(jb.agg_component), rtol=1e-6, atol=0)
+    if jb.arc_inc is None:
+        assert tb.arc_inc is None
+    else:
+        for f in _PAIR_FIELDS:
+            eq_array(getattr(tb.arc_inc, f), getattr(jb.arc_inc, f), f"arc_inc.{f}")
+        assert (tb.arc_inc.n_arc_tiles, tb.arc_inc.n_node_tiles) == (jb.arc_inc.n_arc_tiles, jb.arc_inc.n_node_tiles)
+
+
+class _FastJit:
+    """``jax.jit(fn, **kw)`` that compiles each new argument signature with
+    ``_FAST_COMPILE``: the same HLO, and so the same f32 operations in the
+    same order, compiled faster."""
+
+    def __init__(self, fn, **kw):
+        self._jit = _REAL_JIT(fn, **kw)
+        self._compiled = {}
+
+    def __call__(self, *args):
+        leaves, tree = jax.tree_util.tree_flatten(args)
+        key = (tree, tuple((getattr(x, "shape", None), str(getattr(x, "dtype", type(x)))) for x in leaves))
+        compiled = self._compiled.get(key)
+        if compiled is None:
+            compiled = self._compiled[key] = self._jit.lower(*args).compile(_FAST_COMPILE)
+        return compiled(*args)
+
+
+_REAL_JIT = jax.jit
+
+
+@contextlib.contextmanager
+def fast_jax_jit():
+    """Within it, the JAX package's ``jax.jit`` calls made at run time (its
+    trainer's steps, the serial bake) compile through ``_FastJit``."""
+    jax.jit = _FastJit
+    try:
+        yield
+    finally:
+        jax.jit = _REAL_JIT
