@@ -147,15 +147,38 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    composite node model one epoch over the same graph.  Launches counted
    every leg.
 
+20. the scanned epoch (``fit(scan_batches=True)``: the epoch's train steps
+   captured once into a CUDA graph and replayed once an epoch), for the
+   flagship over phase 19's sequencer (3 batches of 1,000 molecules), the
+   starter CLGNN (dim_state 10, ``parallel``, ``average_st_grads``; 3 of
+   its 5 layers) and the arc GNN over 1,000 of those molecules (2 batches
+   of 500; 1-type composite and arc-focused twins): 3 epochs captured, 3
+   one step a batch on the card (twice: are they equal bit for bit?) and
+   3 on the CPU, each validated on 2 batches (the captured evaluate),
+   with ``ReduceLROnPlateau`` halving the rate after epochs 1 and 2 and
+   ``EarlyStopping`` restoring the best validated weights; the captured
+   fit's History and state against the per-step fit's (bit for bit where
+   two per-step runs agree) and the CPU's (the flagship's and the arc
+   GNN's losses at rtol 1e-5 and state at rtol 1e-5 / atol 1e-5, the
+   CLGNN's at the wider bounds of ``scanned_epoch_section``, each with a
+   bf16-aggregation control that must fail it); a resume from the captured
+   fit's epoch-1 checkpoint; one profiler session over a replay and a
+   per-step epoch of each model (the kernels each launched, the device-busy
+   share); the epoch and capture times.  The partitioned fits run
+   on phase 17's ranks (``_partitioned_fits``: validation, EarlyStopping,
+   checkpoints and resume at ``steps_per_launch=2``).
+
 Then the phase times, one JSON line listing the kernels, the card line
 again, and as the last line ``{"ok": true, "device": {...}}``.  The full log also goes to
 ``chiprun_out/chip_smoke.jsonl``.  Exits non-zero without a card.
 """
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1490,6 +1513,7 @@ def strip_scripts_section(card):
 
 
 PARTS = 4  # ranks of the partitioned engine, all on the one card
+CLGNN_LAYERS = 3  # phase 20's starter CLGNN: the starter's widths, 3 of its 5 layers
 
 
 class bf16_aggregation:
@@ -1950,7 +1974,9 @@ def pipeline_section(card, g_large):
         kernels.reset_launches()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)  # the rebuilds' bf16 fallback, as above
-            history = model.fit(train_seq, epochs=3, validation_data=val_seq, callbacks=cbs, verbose=0)
+            # one step a batch: phase 20 drives the captured epoch
+            history = model.fit(train_seq, epochs=3, validation_data=val_seq, callbacks=cbs, verbose=0,
+                                scan_batches=False)
             torch.cuda.synchronize()
         launched = expect_launches(strip_matmul=9 * 4 + 3 * 4, strip_matmul_t=9 * 4)
         kernels.reset_launches()
@@ -2005,7 +2031,8 @@ def pipeline_section(card, g_large):
     np.random.seed(200)
     with widths, warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
-        histories = lgnn.fit(serial_seq, epochs=2, validation_data=serial_val, verbose=0, bake_batch_size=1000)
+        histories = lgnn.fit(serial_seq, epochs=2, validation_data=serial_val, verbose=0, bake_batch_size=1000,
+                             scan_batches=False)
         torch.cuda.synchronize()
     serial_s = time.perf_counter() - t
     # each layer: 6 train steps (a peeled forward: the baked labels are host-summed), 2 validations
@@ -2120,6 +2147,356 @@ def pipeline_section(card, g_large):
     del trans, cgnn
     torch.cuda.empty_cache()
     out["leg1"], out["shares"] = leg1, shares
+    out["splits"] = (train_g, val_g, test_g)
+    return out
+
+
+# -- phase 20: the scanned epoch (a captured CUDA graph) --------------------------
+
+def _kernel_of(name):
+    """The kernel row a profiler event's name belongs to (None for others):
+    the strip kernel's last template argument is its direction."""
+    if "strip_kernel<" in name:
+        args = name.split("strip_kernel<", 1)[1].split(">", 1)[0]
+        return "strip_matmul_t" if args.replace(" ", "").endswith("true") else "strip_matmul"
+    for kernel in ("incidence_select", "incidence_scatter"):
+        if f"{kernel}_kernel" in name:
+            return kernel
+    return None
+
+
+def device_windows(fns):
+    """One ``torch.profiler`` session (CPU and CUDA activity) over the
+    callables ``fns`` ({label: fn}) in turn, each window ending in a
+    synchronise and opened by a marker kernel (``torch.cuda._sleep``):
+    per label the host seconds of its window, its device-busy seconds (the
+    kernels and copies between its marker and the next, in device order)
+    and the launches of the port's kernels by row.  One session for all: a
+    CUDA graph replayed in a later session of the same process crashed the
+    profiler (segmentation fault) on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    walls, labels = {}, list(fns)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for label in labels:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fns[label]()
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    on_card = [ev for ev in prof.events() if "CUDA" in str(getattr(ev, "device_type", ""))
+               and not getattr(ev, "is_user_annotation", False)]
+    on_card.sort(key=lambda ev: ev.time_range.start)
+    out = {label: {"wall_s": walls[label], "busy_s": 0.0, "launches": {}} for label in labels}
+    window = -1
+    for ev in on_card:
+        if "spin_kernel" in ev.name:
+            window += 1
+            continue
+        if not 0 <= window < len(labels):
+            continue
+        res = out[labels[window]]
+        res["busy_s"] += ev.time_range.elapsed_us() / 1e6
+        kernel = _kernel_of(ev.name)
+        if kernel is not None:
+            res["launches"][kernel] = res["launches"].get(kernel, 0) + 1
+    assert window == len(labels), f"{window} of {len(labels)} window markers seen"
+    for res in out.values():
+        res["busy_share"] = res["busy_s"] / res["wall_s"]
+    return out
+
+
+class capture_times:
+    """Within it, every capture of a scanned epoch is timed
+    (``(kind, seconds)``: its warm-up, capture and synchronise)."""
+
+    def __enter__(self):
+        from gnnkeras_tpu_torch.training import trainer as T
+
+        self.times, self._cls, real = [], T._ScannedEpoch, T._ScannedEpoch._capture
+
+        def capture(entry, model):
+            t = time.perf_counter()
+            real(entry, model)
+            self.times.append(("train" if entry.train else "eval", time.perf_counter() - t))
+
+        self._real, T._ScannedEpoch._capture = real, capture
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._capture = self._real
+        return False
+
+
+def scanned_leg(label, make_model, make_seqs, card, compile_kw, per_epoch, failures, ck_root, cpu_tol):
+    """One model's scanned fit on the card (phase 20): 3 epochs with
+    ``scan_batches=True`` (a captured CUDA graph replayed once an epoch)
+    against the same fit one step a batch on the card (twice: are two
+    per-step runs equal bit for bit?) and on the CPU.  Each fit validates
+    on a sequencer of two batches (the captured evaluate in the scanned
+    fit), halves its rate with ``ReduceLROnPlateau`` after epochs 1 and 2,
+    restores its best validated weights with ``EarlyStopping`` and, in the
+    scanned fit, writes a checkpoint every epoch; a new model resumed from
+    epoch 1's checkpoint trains epoch 2 captured again.  Then one replay
+    under the profiler (the port's kernels launched by the replay) against
+    one per-step epoch.  ``per_epoch``: the kernels' launches of one epoch
+    (one replay).  ``cpu_tol``: the bounds against the CPU's fit (``loss``:
+    rtol of the losses, ``accuracy``: atol of the accuracies, ``state``:
+    (rtol, atol) of the parameters and statistics), which the bf16 control
+    must fail.  Checks append to ``failures``; returns the leg's record, its
+    training sequencer and what the section profiles."""
+    import shutil
+
+    import torch
+    import gnnkeras_tpu_torch.models.gnn as G
+    from gnnkeras_tpu_torch import kernels
+    from gnnkeras_tpu_torch.training.callbacks import EarlyStopping, LambdaCallback, ReduceLROnPlateau
+    from gnnkeras_tpu_torch.training.optimizers import current_learning_rate
+    from gnnkeras_tpu_torch.training.trainer import train_step
+
+    real_initial_state = G.initial_state
+    card_streams = {}
+
+    def card_draw(n, ds, generator, device):
+        # the CPU fit draws its dim_state > 0 initial states as the card does
+        # from the same seed (a CPU generator's draws differ from a card's):
+        # a card generator of that seed for each CPU generator, whose stream
+        # the layers of a stack continue
+        key = id(generator)
+        if key not in card_streams:
+            card_streams[key] = (generator, torch.Generator(device="cuda").manual_seed(generator.initial_seed()))
+        return real_initial_state(n, ds, card_streams[key][1], "cuda").to(device)
+
+    def fit(device, scan, epochs=3, resume_from=None, control=None, checkpoint_dir=None):
+        model = make_model(device)
+        model.compile(optimizer="adam:0.01", loss="categorical_crossentropy", metrics=["accuracy"], **compile_kw)
+        train, valid = make_seqs(device)
+        rec = {"ends": [], "snaps": []}
+        cbs = [LambdaCallback(on_train_begin=lambda logs: rec["ends"].append(time.perf_counter()),
+                              on_epoch_end=lambda e, logs: (rec["ends"].append(time.perf_counter()),
+                                                            rec["snaps"].append({k: v.detach().cpu().clone() for k, v
+                                                                                 in model.state_dict().items()})))]
+        kw = dict(epochs=epochs, verbose=0, scan_batches=scan)
+        np.random.seed(500)
+        if resume_from is None:
+            cbs += [ReduceLROnPlateau(monitor="loss", mode="max", patience=0, factor=0.5),
+                    EarlyStopping(monitor="val_loss", patience=5, restore_best_weights=True)]
+            kw.update(validation_data=valid, checkpoint_dir=checkpoint_dir)
+        else:
+            for _ in range(2):  # NumPy's shuffles of epochs 0 and 1: epoch 2's batches
+                train.on_epoch_end()
+            train.wait_for_rebuild()
+            kw.update(checkpoint_dir=resume_from, resume=True)
+        G.initial_state = card_draw if device == "cpu" else real_initial_state
+        kernels.reset_launches()
+        try:
+            with warnings.catch_warnings(), control or contextlib.nullcontext():
+                warnings.simplefilter("ignore", RuntimeWarning)  # the rebuilds' bf16 fallback (parallel arcs)
+                history = model.fit(train, callbacks=cbs, **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            G.initial_state = real_initial_state
+        rec.update(model=model, history=history.history, epoch_s=list(np.diff(rec["ends"])), train=train,
+                   launches={k: v for k, v in kernels.LAUNCHES.items() if v})
+        return rec
+
+    def share(a, b, rtol, atol):
+        return float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+
+    def state_shares(a, b, rtol, atol):
+        return max(share(x.cpu().numpy(), y.cpu().numpy(), rtol, atol)
+                   for x, y in zip(a.state_dict().values(), b.state_dict().values()))
+
+    def check(ok, what):
+        if not ok:
+            failures.append(f"{label}: {what}")
+
+    t0 = time.perf_counter()
+    with capture_times() as captures:
+        cap = fit("cuda", True, checkpoint_dir=os.path.join(ck_root, label))
+    cap_s = time.perf_counter() - t0
+    entry = next(iter(cap["model"]._scan["train"].values()))
+    # a capture for epoch 0 and again only where a rebuild grew the pads
+    train_captures = [t for kind, t in captures.times if kind == "train"]
+    check(entry.graph is not None and 1 <= len(train_captures) <= 3, f"training captures {train_captures}")
+    step, step2 = fit("cuda", False), fit("cuda", False)
+    deterministic = step["history"] == step2["history"] and all(
+        torch.equal(a, b) for a, b in zip(step["model"].state_dict().values(), step2["model"].state_dict().values()))
+    t0 = time.perf_counter()
+    cpu = fit("cpu", False)
+    cpu_s = time.perf_counter() - t0
+    res = {"phase": "scanned_epoch", "model": label, "batches": len(cap["train"]),
+           "graphs_per_batch": cap["train"].batch_size, "epochs": 3,
+           "launches_at_capture": cap["launches"], "launches_per_step_fit": step["launches"],
+           "captures_s": captures.times, "epoch_s_captured": cap["epoch_s"], "epoch_s_per_step": step["epoch_s"],
+           "epoch_s_per_step_again": step2["epoch_s"], "fit_s_captured": cap_s, "fit_s_cpu": cpu_s,
+           "per_step_runs_bit_equal": deterministic, "history_captured": cap["history"]}
+    # the captured fit against the per-step fit on the card: bit for bit
+    # where two per-step runs agree bit for bit
+    hist_share = max(share(np.array(cap["history"][k]), np.array(step["history"][k]), 1e-5, 0.0)
+                     for k in step["history"])
+    res["vs_per_step"] = {"history_share": hist_share,
+                          "state_share": state_shares(cap["model"], step["model"], 1e-5, 1e-6),
+                          "state_max_abs_diff": max(float((a.cpu() - b.cpu()).abs().max()) for a, b in zip(
+                              cap["model"].state_dict().values(), step["model"].state_dict().values())),
+                          "bit_equal": cap["history"] == step["history"] and all(
+                              torch.equal(a, b) for a, b in zip(cap["model"].state_dict().values(),
+                                                                step["model"].state_dict().values()))}
+    if deterministic:
+        check(res["vs_per_step"]["bit_equal"], "captured fit not bit for bit the per-step fit")
+    check(hist_share <= 1.0 and res["vs_per_step"]["state_share"] <= 1.0, "captured fit vs per-step fit")
+    # the captured fit against the CPU's per-step fit, and a control fit on
+    # the card whose aggregations read bf16-rounded states
+    bad = fit("cuda", True, control=bf16_aggregation())
+
+    def worst(run):
+        """The state entry farthest from the CPU's."""
+        name, (a, b) = max(((k, (v.cpu().numpy(), cpu["model"].state_dict()[k].numpy()))
+                            for k, v in run["model"].state_dict().items()),
+                           key=lambda kv: float(np.abs(kv[1][0] - kv[1][1]).max()))
+        i = int(np.argmax(np.abs(a - b)))
+        return {"name": name, "card": float(a.flat[i]), "cpu": float(b.flat[i]), "leaf_max": float(np.abs(b).max())}
+
+    def vs_cpu(run):
+        losses = [k for k in cpu["history"] if k.endswith("loss")]
+        accuracies = [k for k in cpu["history"] if k.endswith("accuracy")]
+        return {"worst": worst(run),
+                "loss_share": max(share(np.array(run["history"][k]), np.array(cpu["history"][k]), cpu_tol["loss"],
+                                        0.0) for k in losses),
+                "accuracy_max_abs_diff": max(float(np.abs(np.array(run["history"][k]) - cpu["history"][k]).max())
+                                             for k in accuracies),
+                "state_share": state_shares(run["model"], cpu["model"], *cpu_tol["state"]),
+                "state_share_phase5": state_shares(run["model"], cpu["model"], 1e-5, 1e-6),
+                "state_max_abs_diff": max(float((a.cpu() - b).abs().max()) for a, b in zip(
+                    run["model"].state_dict().values(), cpu["model"].state_dict().values()))}
+
+    res["vs_cpu"], res["control_vs_cpu"], res["cpu_tolerance"] = vs_cpu(cap), vs_cpu(bad), cpu_tol
+    res["history_cpu"], res["history_control"] = cpu["history"], bad["history"]
+    check(res["vs_cpu"]["loss_share"] <= 1.0, "losses against the CPU's")
+    check(res["vs_cpu"]["accuracy_max_abs_diff"] <= cpu_tol["accuracy"], "accuracies against the CPU's")
+    check(res["vs_cpu"]["state_share"] <= 1.0, "state against the CPU's")
+    check(res["control_vs_cpu"]["state_share"] > 1.0, "the bf16 control passed the state bound")
+    # ReduceLROnPlateau fired after epochs 1 and 2 (max mode: the loss falls)
+    lrs = [current_learning_rate(r["model"]._opt) for r in (cap, step, cpu)]
+    res["final_learning_rate"] = lrs
+    check(all(abs(lr - 0.0025) < 1e-9 for lr in lrs), f"learning rates {lrs}")
+    # EarlyStopping restored the best validated epoch's weights
+    best = int(np.argmin(cap["history"]["val_loss"]))
+    res["best_epoch"] = best
+    check(all(torch.equal(v.cpu(), cap["snaps"][best][k]) for k, v in cap["model"].state_dict().items()),
+          "EarlyStopping did not restore the best epoch's weights")
+    # a resume from the captured fit's epoch-1 checkpoint: epoch 2 again
+    resume_dir = os.path.join(ck_root, label + "_resume")
+    shutil.copytree(os.path.join(ck_root, label), resume_dir)
+    for name in ("ckpt_2.pt", "extra_2.json"):
+        os.unlink(os.path.join(resume_dir, name))
+    resumed = fit("cuda", True, resume_from=resume_dir)
+    res["resume"] = {"loss": resumed["history"]["loss"], "loss_uninterrupted": cap["history"]["loss"][2:],
+                     "state_share": max(share(v.cpu().numpy(), cap["snaps"][2][k].numpy(), 1e-5, 1e-6)
+                                        for k, v in resumed["model"].state_dict().items()),
+                     "bit_equal": all(torch.equal(v.cpu(), cap["snaps"][2][k])
+                                      for k, v in resumed["model"].state_dict().items())}
+    check(len(resumed["history"]["loss"]) == 1, "the resume ran one epoch")
+    if deterministic:
+        check(res["resume"]["bit_equal"] and resumed["history"]["loss"] == cap["history"]["loss"][2:],
+              "resumed epoch 2 not bit for bit the uninterrupted one")
+    check(res["resume"]["state_share"] <= 1.0, "resumed epoch 2 against the uninterrupted one")
+    # what the section profiles: one replay against one per-step epoch
+    model_s = step["model"]
+    batches = [step["train"][i] for i in range(len(step["train"]))]
+
+    def per_step_epoch():
+        kernels.reset_launches()
+        for b in batches:
+            train_step(model_s, b, model_s.next_rng())
+        res["per_step_launches_counted"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+    res["per_epoch_expected"], res["card"] = per_epoch, card
+    keep = (cap, step, step2, cpu, bad, resumed)  # alive until the section's profiler window
+    return res, cap["train"], {"replay": entry.graph.replay, "per_step_epoch": per_step_epoch, "keep": keep}
+
+
+def scanned_epoch_section(card, splits):
+    """Phase 20 (module docstring).  ``splits``: phase 19's (train, val,
+    test) molecules.  Returns the legs' records and the kernel checks of the
+    kernels line; raises after its last line when a check failed."""
+    import tempfile
+
+    from gnnkeras_tpu_torch.data import CompositeMultiGraphSequencer, MultiGraphSequencer
+    from gnnkeras_tpu_torch.data.synthetic import arc_gnn, composite_of, flagship_gnn, starter_clgnn
+
+    train_g, val_g, _ = splits
+    small = train_g[:1000]  # the CLGNN and the arc GNN: 2 batches of 500 an epoch
+    ck_root = tempfile.mkdtemp(dir=os.path.join(REPO, "gnnkeras_tpu_torch", "_build"))
+
+    def seqs(cls, train, valid, focus, batch_size):
+        def make(device):
+            kw = dict(slot_pack=128, strip_dtype="int8", device=device)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # parallel arcs: the bf16 latch
+                return (cls(train, focus, "average", batch_size=batch_size, **kw),
+                        cls(valid, focus, "average", batch_size=375, shuffle=False, **kw))
+        return make
+
+    failures, out, trains, probes = [], {"checks": {}}, {}, {}
+    # against the CPU's fit after 9 (6) Adam steps: the flagship's and the arc
+    # GNN's losses at phase 5's rtol 1e-5, their state at phase 14's rtol
+    # 1e-5 / atol 1e-5 (phase 5's atol 1e-6 gives share 4.95: Adam's
+    # lr·g/(|g| + eps) magnifies f32 noise in a small gradient); the CLGNN's
+    # losses at rtol 5e-3, its accuracies within 2 of 500 graphs and its
+    # state at atol 5e-3 (a layer-1 BatchNorm gamma with a near-zero
+    # gradient ends 1.7e-3 from the CPU's, PERF.md PR 13); each with the
+    # bf16-aggregation control that must fail it
+    tight = dict(loss=1e-5, accuracy=0.0, state=(1e-5, 1e-5))
+    out["flagship"], trains["flagship"], probes["flagship"] = scanned_leg(
+        "flagship", lambda dev: flagship_gnn(dev, seed=0), seqs(MultiGraphSequencer, train_g, val_g, "g", 1000),
+        card, {}, dict(strip_matmul=3 * 4, strip_matmul_t=3 * 4), failures, ck_root, tight)
+    out["clgnn"], trains["clgnn"], probes["clgnn"] = scanned_leg(
+        "starter_clgnn", lambda dev: starter_clgnn(dev, seed=0, layers=CLGNN_LAYERS),
+        seqs(CompositeMultiGraphSequencer, [composite_of(g) for g in small], [composite_of(g) for g in val_g], "g",
+             500),
+        card, dict(training_mode="parallel", average_st_grads=True),
+        dict(strip_matmul=2 * 5 * CLGNN_LAYERS, strip_matmul_t=2 * 4 * CLGNN_LAYERS), failures, ck_root,
+        dict(loss=5e-3, accuracy=2 / 500, state=(0.0, 5e-3)))
+    out["arc"], trains["arc"], probes["arc"] = scanned_leg(
+        "arc", lambda dev: arc_gnn(dev, seed=0),
+        seqs(MultiGraphSequencer, as_arc_focus(small, seed=21), as_arc_focus(val_g, seed=22), "a", 500),
+        card, {}, dict(strip_matmul=2 * 4, strip_matmul_t=2 * 4, incidence_select=2, incidence_scatter=2),
+        failures, ck_root, tight)
+    # one profiler window a replay and a per-step epoch of each leg
+    windows = device_windows({f"{leg}:{kind}": probe[kind] for leg, probe in probes.items()
+                              for kind in ("replay", "per_step_epoch")})
+    for leg, res in out.items():
+        if leg == "checks":
+            continue
+        res["replay"], res["per_step_epoch"] = windows[f"{leg}:replay"], windows[f"{leg}:per_step_epoch"]
+        want = res["per_epoch_expected"]
+        for kind in ("replay", "per_step_epoch"):
+            if res[kind]["launches"] != want:
+                failures.append(f"{leg}: {kind} launches {res[kind]['launches']} != {want}")
+        if res["per_step_launches_counted"] != want:
+            failures.append(f"{leg}: per-step epoch counted {res['per_step_launches_counted']} != {want}")
+        emit(res)
+    del probes
+    # the kernels at the legs' own operators and widths (a batch of each
+    # leg's sequencer; d 16: the flagship's and the CLGNN's padded state)
+    for leg, train in trains.items():
+        for name in ("strip_matmul", "strip_matmul_t"):
+            out["checks"][(leg, name)] = check_strip(train[0].strip, f"scanned_{leg}_batch", timed=True, name=name,
+                                                     d=16)
+    arc_batch = trains["arc"][0]
+    out["checks"]["incidence_select"], out["checks"]["incidence_scatter"] = check_incidence(
+        arc_batch.arc_inc, arc_batch.arc_src.cpu().numpy(), arc_batch.arc_dst.cpu().numpy(),
+        "scanned_arc_batch", timed=True)
+    del trains
+    emit({"phase": "scanned_epoch_checks", "failures": failures, "card": card})
+    assert not failures, failures
     return out
 
 
@@ -2196,12 +2573,14 @@ def _ring_times(x, reps=20):
             "library_ms": host_ms(lambda: all_gather(x))}
 
 
-def _partition_rank(rank, world, shard, halo_rows):
+def _partition_rank(rank, world, shard, halo_rows, ck):
     """Phase 17 on one rank (a spawned process on the card): the ring kernel
     against its plain version at the halo's and the full state's shape, the
     large-graph model's forward through both transports and one Adam step
     through ``collective``, each with its launches counted from 0 and host
-    times.  Returns NumPy results for the parent to compare."""
+    times; then phase 20's partitioned fits (``_partitioned_fits``, their
+    checkpoints under ``ck``).  Returns NumPy results for the parent to
+    compare."""
     import torch
     from gnnkeras_tpu_torch import kernels
     from gnnkeras_tpu_torch.data.synthetic import large_graph_gnn
@@ -2267,8 +2646,50 @@ def _partition_rank(rank, world, shard, halo_rows):
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t) * 1e3)
     res["step"]["train_step_ms"], res["step"]["train_step_ms_all"] = float(np.median(ts)), ts
+    res["fit"] = _partitioned_fits(dev, shard, ck)
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return res
+
+
+def _partitioned_fits(dev, shard, ck):
+    """Phase 20's partitioned fits on one rank (``steps_per_launch=2``):
+    3 epochs validated on the training shard with ``EarlyStopping``
+    restoring the best validated epoch (validation forces chunks of one
+    epoch); 3 epochs checkpointed every 2 (chunks of 2: the first chunk
+    lands on the boundary, the last epoch saves); 2 epochs checkpointed,
+    then resumed to 3.  Rank 0 writes the checkpoints into ``ck``."""
+    import torch
+    from gnnkeras_tpu_torch.data.synthetic import large_graph_gnn
+    from gnnkeras_tpu_torch.parallel.partition import PartitionedGNN
+    from gnnkeras_tpu_torch.training.callbacks import EarlyStopping, LambdaCallback
+    from gnnkeras_tpu_torch.training.checkpoint import CheckpointManager
+
+    def state(model):
+        return {k: v.cpu().numpy().copy() for k, v in model.state_dict().items()}
+
+    def fit(callbacks=None, **kw):
+        model = large_graph_gnn(dev, seed=0)
+        model.compile(optimizer="adam:0.01", loss="mse", metrics=["mse"])
+        t = time.perf_counter()
+        history = PartitionedGNN(model).fit(shard, verbose=0, steps_per_launch=2,
+                                            callbacks=callbacks(model) if callbacks else None, **kw)
+        torch.cuda.synchronize()
+        return model, history.history, time.perf_counter() - t
+
+    snaps = []
+    validated_model, validated, validated_s = fit(
+        lambda m: [LambdaCallback(on_epoch_end=lambda e, logs: snaps.append(state(m))),
+                   EarlyStopping(monitor="val_loss", patience=5, restore_best_weights=True)],
+        epochs=3, validation_data=shard)
+    best = int(np.argmin(validated["val_loss"]))
+    whole, whole_h, whole_s = fit(epochs=3, checkpoint_dir=os.path.join(ck, "whole"), checkpoint_every=2)
+    fit(epochs=2, checkpoint_dir=os.path.join(ck, "resume"))
+    resumed, resumed_h, _ = fit(epochs=3, checkpoint_dir=os.path.join(ck, "resume"), resume=True)
+    return {"validated": validated, "validated_s": validated_s, "best_epoch": best,
+            "restored_best": all(np.array_equal(v, snaps[best][k]) for k, v in state(validated_model).items()),
+            "validated_state": state(validated_model), "whole": whole_h, "whole_s": whole_s,
+            "whole_steps": CheckpointManager(os.path.join(ck, "whole")).all_steps(),
+            "resumed": resumed_h, "whole_state": state(whole), "resumed_state": state(resumed)}
 
 
 def partitioned_section(card, g, batch, mps):
@@ -2313,8 +2734,9 @@ def partitioned_section(card, g, batch, mps):
     del model
     torch.cuda.empty_cache()
 
+    ck = tempfile.mkdtemp(dir=os.path.join(REPO, "gnnkeras_tpu_torch", "_build"))
     t0 = time.perf_counter()
-    ranks = spawn(_partition_rank, PARTS, [(pg.shard(r, "cpu"), halo_rows) for r in range(PARTS)], threads=2,
+    ranks = spawn(_partition_rank, PARTS, [(pg.shard(r, "cpu"), halo_rows, ck) for r in range(PARTS)], threads=2,
                   timeout_s=600)
     ranks_s = time.perf_counter() - t0
     out = {"ring": ranks[0]["ring"], "ranks": ranks}
@@ -2370,7 +2792,37 @@ def partitioned_section(card, g, batch, mps):
           "vs_single_device": {t: out[t] for t in ("collective", "pallas_ring")},
           "step_loss": ranks[0]["step"]["loss"], "step_loss_single_device": loss_ref,
           "grad_max_rel_diff": worst, "adam_entries_excluded": excluded, "card": card})
+    out["fit"] = partitioned_fit_checks(ranks, card)
     return out
+
+
+def partitioned_fit_checks(ranks, card):
+    """Phase 20's partitioned fits (``_partitioned_fits``) across the ranks:
+    every rank's logs and weights equal (every rank takes rank 0's logs and,
+    after a restore or a callback's change, its weights); the validated fit
+    ends on its best validated epoch's weights; the checkpoints land where
+    the chunks cross the boundary and at the end; the resumed run ends where
+    the uninterrupted one ends (bit for bit)."""
+    fits = [r["fit"] for r in ranks]
+    first = fits[0]
+    for f in fits[1:]:
+        for key in ("validated", "whole", "resumed", "whole_steps", "best_epoch"):
+            assert f[key] == first[key], key
+        for key in ("validated_state", "whole_state", "resumed_state"):
+            for name, value in first[key].items():
+                np.testing.assert_array_equal(f[key][name], value, err_msg=f"{key} {name}")
+    assert all(f["restored_best"] for f in fits)
+    assert len(first["validated"]["val_loss"]) == 3 and np.isfinite(first["validated"]["val_loss"]).all()
+    assert first["whole_steps"] == [1, 2], first["whole_steps"]
+    assert first["resumed"]["loss"] == first["whole"]["loss"][2:], (first["resumed"], first["whole"])
+    for name, value in first["whole_state"].items():
+        np.testing.assert_array_equal(first["resumed_state"][name], value, err_msg=name)
+    res = {"phase": "partitioned_fit", "parts": PARTS, "steps_per_launch": 2, "validated": first["validated"],
+           "best_epoch": first["best_epoch"], "validated_fit_s": [f["validated_s"] for f in fits],
+           "checkpointed": first["whole"], "checkpointed_fit_s": [f["whole_s"] for f in fits],
+           "checkpoint_steps": first["whole_steps"], "resumed": first["resumed"], "card": card}
+    emit(res)
+    return res
 
 
 def main():
@@ -2608,6 +3060,11 @@ def main():
     t_phase = time.perf_counter()
     pipeline = pipeline_section(card, large["graph"])
     times["pipeline"] = time.perf_counter() - t_phase
+
+    # -- 20. the scanned epoch: a captured CUDA graph --------------------------------
+    t_phase = time.perf_counter()
+    scanned = scanned_epoch_section(card, pipeline["splits"])
+    times["scanned_epoch"] = time.perf_counter() - t_phase
     emit({"phase": "timing", "phase_s": times, "total_s": time.perf_counter() - t_start})
 
     # -- kernels, card, verdict ----------------------------------------------
@@ -2723,6 +3180,16 @@ def main():
         *[entry(f"{name}_single_graph", strip_src, "gnnkeras_tpu/ops/strip.py:278",
                 pipeline["single_launches"][name], pipeline["single_checks"][name])
           for name in ("strip_matmul", "strip_matmul_t")],
+        # phase 20, rows 1/1b and 5-7 in the captured epochs: launches per
+        # replay (one replay an epoch) from the profiler's trace, each leg's
+        # kernels checked on a batch of its own sequencer
+        *[entry(f"{name}_scanned_epoch{suffix}", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+                scanned[leg]["replay"]["launches"].get(name, 0), scanned["checks"][(leg, name)])
+          for leg, suffix in (("flagship", ""), ("clgnn", "_clgnn"), ("arc", "_arc"))
+          for name in ("strip_matmul", "strip_matmul_t")],
+        *[entry(f"{name}_scanned_epoch_arc", inc_src, "gnnkeras_tpu/ops/incidence.py:375",
+                scanned["arc"]["replay"]["launches"].get(name, 0), scanned["checks"][name])
+          for name in ("incidence_select", "incidence_scatter")],
     ]})
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl"), "w") as f:

@@ -344,6 +344,11 @@ class SingleGraphSequencer(MultiGraphSequencer):
     each batch is that base batch with its own ``set_mask`` and
     ``target_mask``."""
 
+    # every batch shares the one graph's topology: a scanned epoch's static
+    # copies would duplicate the whole padded graph (and its operators) per
+    # batch on the card, so the trainer steps a batch at a time
+    scan_stack_ok = False
+
     def __init__(
         self,
         graph: GraphObject,

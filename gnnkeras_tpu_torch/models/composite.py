@@ -22,7 +22,9 @@ incidence select and, backward, scatter kernels (``ops/incidence.py``).
 The state nets' moving statistics travel as one flat dict keyed
 ``{t}.layers.{i}.moving_mean`` (the ``nn.ModuleList`` names), so the
 unfolding loop of ``models/gnn.py`` carries them unchanged.  ``save`` /
-``load`` / ``copy`` / ``summary`` wait for ROADMAP queue 5.
+``load`` / ``copy`` / ``summary`` and the ``transposed`` override are the
+homogeneous models' (``models/gnn.py``, ``models/base.py``): the JSON
+config lists one net config per node type.
 """
 
 from __future__ import annotations

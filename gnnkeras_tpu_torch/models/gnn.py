@@ -29,7 +29,9 @@ N(0, 0.1²) noise drawn by ``initial_state`` from the caller's generator,
 the transition input is ``[state | labels | Σstate | Σlabels | Σarcs]`` and
 the readout input ``[state | labels]``; nothing is peeled.
 
-Two engines, picked per batch as in the JAX package (``_use_transposed``):
+Two engines, picked per batch as in the JAX package (``_use_transposed``;
+the model's ``transposed`` attribute overrides the choice: None automatic,
+False row-major, True feature-major, raising without a block operator):
 row-major (N, d) state through ``GraphBatch.aggregate``, and feature-major
 (d_pad, N) state through the strip kernel (``ops/strip.py``, slot 128 or
 the slot-32/64 mixed format), the banded decomposition (``ops/banded.py``),
@@ -47,6 +49,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from gnnkeras_tpu_torch.graph.batch import GraphBatch
 from gnnkeras_tpu_torch.models.base import GraphModel
@@ -159,6 +162,19 @@ def run_unfold_loops(model, batch: GraphBatch, state0, state_old0, bn0, transiti
     return k, state, bn
 
 
+def _net_configs(net):
+    """An MLP's config, or a list of them (a composite model's per-type
+    nets)."""
+    return [m.get_config() for m in net] if isinstance(net, nn.ModuleList) else net.get_config()
+
+
+def _fresh_nets(net):
+    """New MLPs of ``net``'s configs (``net`` an MLP or a list of them)."""
+    if isinstance(net, (list, tuple, nn.ModuleList)):
+        return [MLP.from_config(m.get_config()) for m in net]
+    return MLP.from_config(net.get_config())
+
+
 def _prefixed(prefix: str, stats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {f"{prefix}.{key}": value for key, value in stats.items()}
 
@@ -192,6 +208,10 @@ class GNNnodeBased(GraphModel):
         self.per_iteration_bn = bool(per_iteration_bn)
         if self.per_iteration_bn:
             self.net_state.stack_bn_state(max(self.max_iteration, 1))
+        # the feature-major engine: None = automatic (``_use_transposed``),
+        # False = always row-major, True = required (raises without a block
+        # operator), as the JAX package's attribute
+        self.transposed: Optional[bool] = None
 
     def init_parameters(self, generator: torch.Generator) -> None:
         self.net_state.reset_parameters(generator)
@@ -212,10 +232,19 @@ class GNNnodeBased(GraphModel):
     def _use_transposed(self, batch: GraphBatch) -> bool:
         """The feature-major engine for strip batches and for batches with a
         banded or quantised operator (built for it), and for plain-BCSR
-        batches of narrow state, as the JAX package picks it by default."""
+        batches of narrow state, as the JAX package picks it by default;
+        ``transposed`` False forces the row-major engine and True requires
+        a block operator."""
         from gnnkeras_tpu_torch.ops.banded import BandedOperator
         from gnnkeras_tpu_torch.ops.bcsr import QuantBcsr
 
+        if self.transposed is False:
+            return False
+        if self.transposed:
+            if (batch.strip is None and batch.bcsr is None) or (self.state_vect_dim == 0
+                                                                  and batch.nodes.shape[1] == 0):
+                raise ValueError("transposed unfold requires a block operator (slot_pack strips or dense_blocks BCSR)")
+            return True
         if batch.strip is not None or isinstance(batch.bcsr, (BandedOperator, QuantBcsr)):
             return True
         if batch.bcsr is None:
@@ -409,10 +438,62 @@ class GNNnodeBased(GraphModel):
             out, out_mask, bn_out = self.apply_output(state, batch, training=training, generator=generator)
         return k, state, out, out_mask, {**_prefixed("net_state", bn_state), **_prefixed("net_output", bn_out)}
 
+    # -- config / io -----------------------------------------------------------
+    def get_config(self) -> dict:
+        return {
+            "net_state": self.net_state,
+            "net_output": self.net_output,
+            "state_vect_dim": self.state_vect_dim,
+            "max_iteration": self.max_iteration,
+            "state_threshold": self.state_threshold,
+            "per_iteration_bn": self.per_iteration_bn,
+        }
+
+    @classmethod
+    def from_config(cls, config: dict) -> "GNNnodeBased":
+        """A new model from ``get_config()``: its nets rebuilt from their
+        configs, so it shares no parameter with the source."""
+        config = dict(config)
+        config["net_state"], config["net_output"] = _fresh_nets(config["net_state"]), _fresh_nets(config["net_output"])
+        return cls(**config)
+
+    def _json_config(self) -> dict:
+        return {
+            "model_class": type(self).__name__,
+            "net_state": _net_configs(self.net_state),
+            "net_output": self.net_output.get_config(),
+            "state_vect_dim": self.state_vect_dim,
+            "max_iteration": self.max_iteration,
+            "state_threshold": self.state_threshold,
+            "per_iteration_bn": self.per_iteration_bn,
+        }
+
+    @classmethod
+    def _from_json(cls, config: dict) -> "GNNnodeBased":
+        config = dict(config)
+        config.pop("model_class", None)
+        net_state = config.pop("net_state")
+        net_state = [MLP.from_config(c) for c in net_state] if isinstance(net_state, list) else \
+            MLP.from_config(net_state)
+        return cls(net_state=net_state, net_output=MLP.from_config(config.pop("net_output")), **config)
+
+    def copy(self, copy_weights: bool = True) -> "GNNnodeBased":
+        """A new model of the same configuration: with ``copy_weights`` (and
+        a built source) its weights and statistics, else unbuilt (fresh
+        weights at ``build``)."""
+        return self._copy_weights_into(self._from_json(self._json_config()), copy_weights)
+
+    def summary(self) -> None:
+        print(repr(self))
+        for net in (self.net_state if isinstance(self.net_state, nn.ModuleList) else [self.net_state]):
+            net.summary()
+        self.net_output.summary()
+
     def __repr__(self):
         return (
             f"GNN(type={self.name}, state_dim={self.state_vect_dim}, "
-            f"threshold={self.state_threshold}, max_iter={self.max_iteration})"
+            f"threshold={self.state_threshold}, max_iter={self.max_iteration}, "
+            f"avg={self.average_st_grads})"
         )
 
 

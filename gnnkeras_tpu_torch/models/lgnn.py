@@ -23,8 +23,10 @@ reproduced.
 Each layer with dim_state > 0 draws its own random initial state from the
 caller's generator, in layer order (``models.gnn.initial_state``).  The
 layers' moving statistics are keyed ``gnns.{l}.net_state.…`` as in the
-state dict.  ``save`` / ``load`` / ``copy`` / ``summary`` wait for ROADMAP
-queue 5.
+state dict.  ``save`` / ``load`` write and read the JAX package's folder
+(``config.json`` with ``gnn_class`` and each layer's config,
+``variables.npz`` in JAX's flatten order of ``{'params': {'gnns': ...},
+'state': {'gnns': ...}}``).
 """
 
 from __future__ import annotations
@@ -168,6 +170,48 @@ class LGNN(GraphModel):
             return fit_serial(self, *args, **kwargs)
         return super().fit(*args, **kwargs)
 
+    # -- config / io -------------------------------------------------------------
+    @classmethod
+    def _gnn_classes(cls) -> dict:
+        from gnnkeras_tpu_torch.models.gnn import GNNarcBased, GNNgraphBased, GNNnodeBased
+
+        return {"node": GNNnodeBased, "arc": GNNarcBased, "graph": GNNgraphBased}
+
+    def get_config(self) -> dict:
+        return {"gnns": list(self.gnns), "get_state": self.get_state, "get_output": self.get_output}
+
+    @classmethod
+    def from_config(cls, config: dict) -> "LGNN":
+        """A new stack from ``get_config()``: each layer rebuilt from its
+        config, so it shares no parameter with the source."""
+        config = dict(config)
+        config["gnns"] = [type(g).from_config(g.get_config()) for g in config["gnns"]]
+        return cls(**config)
+
+    def _json_config(self) -> dict:
+        return {
+            "model_class": type(self).__name__,
+            "gnn_class": self.gnns[0].name,
+            "gnns": [g._json_config() for g in self.gnns],
+            "get_state": self.get_state,
+            "get_output": self.get_output,
+        }
+
+    @classmethod
+    def _from_json(cls, config: dict) -> "LGNN":
+        config = dict(config)
+        config.pop("model_class", None)
+        gnn_cls = cls._gnn_classes()[config.pop("gnn_class")]
+        return cls(gnns=[gnn_cls._from_json(sub) for sub in config.pop("gnns")], **config)
+
+    def copy(self, copy_weights: bool = True) -> "LGNN":
+        return self._copy_weights_into(self._from_json(self._json_config()), copy_weights)
+
+    def summary(self) -> None:
+        print(repr(self))
+        for gnn in self.gnns:
+            gnn.summary()
+
     def __repr__(self):
         return (
             f"LGNN(type={self.gnns[0].name}, layers={self.LAYERS}, get_state={self.get_state}, "
@@ -177,6 +221,13 @@ class LGNN(GraphModel):
 
 class CompositeLGNN(LGNN):
     """Layered composite GNN: a stack of composite GNNs of one class."""
+
+    @classmethod
+    def _gnn_classes(cls) -> dict:
+        from gnnkeras_tpu_torch.models.composite import (CompositeGNNarcBased, CompositeGNNgraphBased,
+                                                         CompositeGNNnodeBased)
+
+        return {"node": CompositeGNNnodeBased, "arc": CompositeGNNarcBased, "graph": CompositeGNNgraphBased}
 
     def __repr__(self):
         return f"Composite{super().__repr__()}"

@@ -273,6 +273,20 @@ class MLP(nn.Module):
         self.name = name
         self.batch_normalization = bool(batch_normalization)
         self.units = units
+        self._config = dict(
+            input_dim=self.input_dim,
+            layers=units,
+            activations=activations,
+            kernel_initializer=kernel_initializer,
+            bias_initializer=bias_initializer,
+            kernel_regularizer=kernel_regularizer,
+            bias_regularizer=bias_regularizer,
+            dropout_rate=dropout_rate or None,
+            dropout_pos=dropout_pos or None,
+            alphadropout=alphadropout,
+            batch_normalization=batch_normalization,
+            name=name,
+        )
 
         modules, feat = [], self.input_dim[0]
         for layer in program:
@@ -284,6 +298,42 @@ class MLP(nn.Module):
             else:
                 modules.append(nn.Identity())
         self.layers = nn.ModuleList(modules)
+
+    # -- config / io ---------------------------------------------------------
+    def get_config(self) -> dict:
+        """The constructor's arguments, as the JAX package's ``MLP`` keeps
+        them (``config.json`` holds them for each net)."""
+        return dict(self._config)
+
+    @classmethod
+    def from_config(cls, config: dict) -> "MLP":
+        """A new MLP (fresh, unset parameters) from ``get_config()``."""
+        return cls(**config)
+
+    def count_params(self) -> int:
+        """The trainable parameters (Dense kernels and biases, BatchNorm
+        gamma and beta), as the JAX package's ``MLP.count_params``."""
+        return sum(p.numel() for p in self.parameters())
+
+    def summary(self, with_count: bool = False) -> str:
+        """Print and return the layer program, the JAX package's text; with
+        ``with_count`` a last line gives ``count_params``."""
+        lines = [f"MLP {self.name or ''} (input_dim={self.input_dim})"]
+        feat = self.input_dim[0]
+        for layer in self.program:
+            if layer[0] == "dense":
+                lines.append(f"  Dense({feat} -> {layer[1]}, act={layer[2]})")
+                feat = layer[1]
+            elif layer[0] == "batch_norm":
+                lines.append(f"  BatchNormalization({feat})")
+            else:
+                kind = "AlphaDropout" if layer[2] else "Dropout"
+                lines.append(f"  {kind}(rate={layer[1]})")
+        if with_count:
+            lines.append(f"  params: {self.count_params()}")
+        text = "\n".join(lines)
+        print(text)
+        return text
 
     @property
     def output_dim(self) -> int:

@@ -21,15 +21,24 @@ operators: a local one (plain BCSR; with ``agg_dtype`` the banded int8
 decomposition, quantised BCSR or a cast copy, as the single-graph routes
 choose) and a float BCSR over the exchanged rows.
 
+``PartitionedGNN.fit`` runs the single-device fit surface through
+``training/fit_loop.run_fit_loop``: chunks of ``steps_per_launch`` epochs,
+validation (a ``GraphShard`` scored by ``evaluate`` or a plain sequencer
+scored on one device with the synchronised weights), callbacks,
+checkpoints (rank 0 writes, a barrier follows, every rank restores) and
+resume.  Every rank takes the same decisions: the logs the callbacks see
+are rank 0's, and after a restore or a callback's weight change every rank
+takes rank 0's weights.  The step goes through gloo in host memory, so the
+chunks run eagerly (no captured CUDA graph).
+
 Not ported here: composite graphs (the composite models run on one device;
-their partitioned engine is ROADMAP queue 10b), ``tp_shards > 1`` (queue
-10b), and ``fit``'s checkpoints, validation and callbacks (queue 5).
+their partitioned engine is ROADMAP queue 10b) and ``tp_shards > 1`` (queue
+10b).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -636,24 +645,48 @@ class PartitionedGNN:
 
         return dist.get_rank(self.group)
 
+    def _agree(self, logs: dict) -> dict:
+        """Rank 0's logs on every rank (float64 through a broadcast), so the
+        callbacks of every rank take the same decisions."""
+        import torch.distributed as dist
+
+        keys = list(logs)
+        values = torch.tensor([float(logs[k]) for k in keys], dtype=torch.float64)
+        dist.broadcast(values, src=dist.get_global_rank(self.group, 0), group=self.group)
+        return dict(zip(keys, values.tolist()))
+
+    def _take_rank0_weights(self) -> None:
+        """Every rank's parameters and moving statistics set to rank 0's, in
+        place (one broadcast through host memory)."""
+        import torch.distributed as dist
+
+        tensors = [*self.gnn.parameters(), *self.gnn.buffers()]
+        flat = torch.cat([t.detach().reshape(-1).cpu() for t in tensors])
+        dist.broadcast(flat, src=dist.get_global_rank(self.group, 0), group=self.group)
+        offset = 0
+        with torch.no_grad():
+            for t in tensors:
+                t.copy_(flat[offset:offset + t.numel()].view_as(t))
+                offset += t.numel()
+
     def fit(self, shard: GraphShard, epochs: int = 1, verbose: int = 1, seed: int = 0,
-            checkpoint_dir: Optional[str] = None, resume: bool = False, steps_per_launch: int = 1,
-            validation_data=None, callbacks: Optional[list] = None, class_weight: Optional[dict] = None,
-            validation_freq: int = 1):
+            checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1, resume: bool = False,
+            steps_per_launch: int = 1, validation_data=None, callbacks: Optional[list] = None,
+            class_weight: Optional[dict] = None, validation_freq: int = 1):
         """Full-batch training of the partitioned graph, one step per epoch
-        on every rank; ``steps_per_launch`` steps run between two reads of
-        the logs on the host.  ``class_weight`` ({class: weight}) scales each
+        on every rank, with the single-device fit surface (module
+        docstring).  ``steps_per_launch`` epochs run between two reads of
+        the logs on the host, and a checkpoint lands where a chunk crosses
+        a ``checkpoint_every`` boundary; validation or callbacks force
+        chunks of one epoch.  ``class_weight`` ({class: weight}) scales each
         row's sample weight by its true class's.  Returns a ``History``;
         rank 0 of the group prints with ``verbose``."""
-        from gnnkeras_tpu_torch.training.callbacks import History
-        from gnnkeras_tpu_torch.training.trainer import _class_weight_vector
+        import torch.distributed as dist
 
-        for name, used in (("checkpoint_dir", checkpoint_dir is not None), ("resume", resume),
-                           ("validation_data", validation_data is not None), ("callbacks", bool(callbacks)),
-                           ("validation_freq", validation_freq != 1)):
-            if used:
-                raise NotImplementedError(f"PartitionedGNN.fit({name}=...) is not ported yet (ROADMAP queue 5: "
-                                          "the fit surface through run_fit_loop)")
+        from gnnkeras_tpu_torch.training.fit_loop import run_fit_loop
+        from gnnkeras_tpu_torch.training.trainer import _class_weight_vector
+        from gnnkeras_tpu_torch.training.trainer import evaluate as seq_evaluate
+
         self._require_collective("fit")
         gnn = self.gnn
         if gnn.optimizer is None:
@@ -663,17 +696,22 @@ class PartitionedGNN:
             cw = _class_weight_vector(class_weight, shard.targets.device)
             cls = torch.clamp(torch.argmax(shard.targets, dim=-1), 0, cw.shape[0] - 1)
             shard = dataclasses.replace(shard, sample_weight=shard.sample_weight * cw[cls])
-        history = History()
-        epoch = 0
-        while epoch < epochs:
-            t0 = time.perf_counter()
-            n = min(max(int(steps_per_launch), 1), epochs - epoch)
-            logs = [self.train_step(shard, gnn.next_rng()) for _ in range(n)]
-            for i, step in enumerate(logs):  # one host read per launch of n steps
-                values = {key: float(v) for key, v in step.items()}
-                history.on_epoch_end(epoch + i, values)
-                if verbose and self._rank() == 0:
-                    msg = " - ".join(f"{key}: {v:.4f}" for key, v in values.items())
-                    print(f"Epoch {epoch + i + 1}/{epochs} [{(time.perf_counter() - t0) / n:.3f}s] {msg}")
-            epoch += n
-        return history
+
+        def run_chunk(epoch, n):
+            steps = [self.train_step(shard, gnn.next_rng()) for _ in range(n)]
+            host = torch.stack([torch.stack([s["loss"], s["k"].to(s["loss"].dtype)]) for s in steps]).cpu()
+            return [self._agree({"loss": float(loss), "k": float(k)}) for loss, k in host.tolist()]
+
+        validate = None
+        if isinstance(validation_data, GraphShard):
+            validate = lambda: self._agree({f"val_{k}": v for k, v in self.evaluate(validation_data).items()})
+        elif validation_data is not None:
+            validate = lambda: self._agree(seq_evaluate(gnn, validation_data, verbose=0, prefix="val_"))
+
+        return run_fit_loop(
+            gnn, epochs=epochs, run_chunk=run_chunk, chunk_size=steps_per_launch, validate=validate,
+            callbacks=callbacks, verbose=verbose if self._rank() == 0 else 0, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume, validation_freq=validation_freq,
+            on_resume=self._take_rank0_weights, on_weights_mutated=self._take_rank0_weights,
+            writer=self._rank() == 0, barrier=lambda: dist.barrier(group=self.group),
+        )

@@ -16,7 +16,7 @@ import glob
 import json
 import os
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -30,9 +30,12 @@ def _replace_atomically(path: str, write) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, writer: bool = True,
+                 barrier: Optional[Callable[[], None]] = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = int(max_to_keep)
+        self.writer = bool(writer)
+        self.barrier = barrier
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -54,6 +57,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, model, extra: Optional[Dict[str, Any]] = None) -> None:
+        if self.writer:
+            self._write(step, model, extra)
+        if self.barrier is not None:
+            self.barrier()
+
+    def _write(self, step: int, model, extra: Optional[Dict[str, Any]]) -> None:
         from gnnkeras_tpu_torch.training.trainer import _optimizer
 
         payload = {

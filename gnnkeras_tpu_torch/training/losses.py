@@ -4,7 +4,9 @@ renormalisation and epsilon clipping included) and the masked, sample-
 weighted mean the trainer reduces them with.
 
 Clipping is spelled ``minimum(maximum(p, lo), hi)``, as ``jnp.clip`` is, so
-the gradient at a clip boundary splits the same way in both packages.
+the gradient at a clip boundary splits the same way in both packages.  The
+bounds are 0-dim tensors filled on the loss's device (``new_full``): no
+host-to-device copy, so a loss can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -15,11 +17,11 @@ _EPS = 1e-7  # keras.backend.epsilon()
 
 
 def _clip(p: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    return torch.minimum(torch.maximum(p, p.new_tensor(lo)), p.new_tensor(hi))
+    return torch.minimum(torch.maximum(p, p.new_full((), lo)), p.new_full((), hi))
 
 
 def categorical_crossentropy(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
-    p = y_pred / torch.maximum(torch.sum(y_pred, dim=-1, keepdim=True), y_pred.new_tensor(_EPS))
+    p = y_pred / torch.maximum(torch.sum(y_pred, dim=-1, keepdim=True), y_pred.new_full((), _EPS))
     p = _clip(p, _EPS, 1.0 - _EPS)
     return -torch.sum(y_true * torch.log(p), dim=-1)
 
@@ -45,7 +47,7 @@ def mean_absolute_error(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Ten
 def hinge(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
     y = 2.0 * y_true - 1.0
     margin = 1.0 - y * y_pred
-    return torch.mean(torch.maximum(margin, margin.new_tensor(0.0)), dim=-1)
+    return torch.mean(torch.maximum(margin, margin.new_full((), 0.0)), dim=-1)
 
 
 _LOSSES = {

@@ -139,10 +139,12 @@ def _bake_layer(model, gnn, sequence, t0_sequence, chunk_size: int = 1):
 
 
 def fit_serial(model, sequencer, epochs: int = 1, validation_data=None, callbacks: Optional[list] = None,
-               verbose: int = 1, seed: int = 0, bake_batch_size: int = 1):
+               verbose: int = 1, seed: int = 0, bake_batch_size: int = 1, scan_batches: Optional[bool] = None):
     """Serial-mode LGNN fit: each layer's ``fit`` on the dataset baked by
     the layers below.  ``callbacks``, if given, is one list per layer.
-    Returns the layers' Histories."""
+    ``scan_batches`` goes to every layer's ``fit`` (default: the automatic
+    scanned epoch, as the JAX package's layer fits run).  Returns the
+    layers' Histories."""
     model.build(seed=seed)
     if callbacks is not None:
         if len(callbacks) != model.LAYERS:
@@ -159,7 +161,7 @@ def fit_serial(model, sequencer, epochs: int = 1, validation_data=None, callback
         histories.append(gnn.fit(
             training_sequence.copy(), epochs=epochs,
             validation_data=valid_sequence.copy() if valid_sequence is not None else None,
-            callbacks=callbacks[idx], verbose=verbose,
+            callbacks=callbacks[idx], verbose=verbose, scan_batches=scan_batches,
         ))
         if idx == model.LAYERS - 1:
             break
