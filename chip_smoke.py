@@ -110,11 +110,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    32, 48, 64 and 80 (the last two its route past 48 feature rows) in both
    directions on the bench operator; then, on the
    bench molecules as 1-type composite graphs, the starter's CLGNN
-   (``examples/starter_composite.py``: 5 composite graph-focused layers,
-   dim_state 10, threshold 0.01) served by a ``Predictor`` for requests of
-   1, 16 and 64 molecules, its eval forward (per-layer k, states and
-   outputs, one strip launch per iteration) and one ``parallel`` Adam step
-   (25 + 20 strip launches) card against CPU, 3 ``fit`` steps,
+   (``examples/starter_composite.py``: composite graph-focused layers,
+   dim_state 10, threshold 0.01; 3 of its 5 layers) served by
+   a ``Predictor`` for requests of 1, 16 and 64 molecules, its eval
+   forward (per-layer k, states and outputs, one strip launch per
+   iteration) and one ``parallel`` Adam step (15 + 12 strip launches) card
+   against CPU, 3 ``fit`` steps,
    ``evaluate``, ``predict`` and timed steps, and the same forward and step
    for the starter's single CGNN; the homogeneous LGNN of 5 flagship layers
    (dim_state 0, state widths 14-78, so d_pad 16-80) on the bench batch:
@@ -166,7 +167,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    per-step epoch of each model (the kernels each launched, the device-busy
    share); the epoch and capture times.  The partitioned fits run
    on phase 17's ranks (``_partitioned_fits``: validation, EarlyStopping,
-   checkpoints and resume at ``steps_per_launch=2``).
+   checkpoints and resume at ``steps_per_launch=2``);
+21. distributed training on 4 ranks sharing the card (spawned once,
+   gloo through host memory, launches counted per rank from 0, the strip
+   kernel's also by width), each against the single card, after the strip
+   kernel's checks on packed part 0 at d 16, 32 and 48 and on hybrid part
+   0's local main diagonal at d 8: (a) the packed flagship
+   (``partition_packed(bench, 4, slot_pack=128, strip_dtype='int8')``:
+   whole molecules a rank, strips latched to bf16): the eval forward's
+   states and outputs at phase 4's bounds, one Adam step at phase 5's, 4
+   strip launches a forward and 4 + 4 a step, the ranks' host ms; (b) the
+   packed 3-layer ``flagship_lgnn`` (``residual``): forward and step at
+   phase 18's deep-stack bounds, each with the bf16-aggregation control
+   that must fail it; (c) ``DataParallelTrainer`` over phase 19's sequencer (3
+   batches of 1,000 molecules and a filler on 4 ranks): the first step
+   against a single-card Adam step on the mean of the three batches'
+   gradients (phase 5's bounds), then 2 epochs with validation and a
+   checkpoint resume, every rank's weights and the resumed fit's bit for
+   bit the whole fit's; (d) ``TensorParallelGNN`` of the flagship (14
+   state features padded to 16, 4 a rank): forward and one Adam step, its
+   gradients gathered from the shards; (e)
+   the 500k-node graph partitioned in 2 (``agg_dtype='auto'``): the
+   hybrid step on a data 2 × graph 2 mesh (replica 1 the same graph with a
+   second draw of its targets) against a single-card step on the two
+   replicas' averaged gradients and moving statistics, and on a data 1 ×
+   graph 2 × model 2 mesh (``tp_shards=2``, 8 → 4 features a rank) against
+   the single card's step (phase 17's bounds, the shards' gradients
+   gathered); then
+   ``make_multihost_mesh(2, 2)`` with each rank's environment set as 2
+   hosts × 2, whose step equals the first hybrid step's bit for bit; the
+   partition's ``comm_volume``.
 
 Then the phase times, one JSON line listing the kernels, the card line
 again, and as the last line ``{"ok": true, "device": {...}}``.  The full log also goes to
@@ -862,6 +892,64 @@ def storage_of(batch):
     return type(batch.bcsr).__name__
 
 
+def compiled(model, loss="categorical_crossentropy", **kw):
+    """``model`` compiled with Adam at 0.01, ``loss`` and accuracy."""
+    model.compile(optimizer="adam:0.01", loss=loss, metrics=["accuracy"], **kw)
+    return model
+
+
+def step_arrays(model, loss, grads=None):
+    """A finished step's loss, gradients, parameters and moving statistics
+    as NumPy, keyed as ``model.named_parameters()`` / ``named_buffers()``.
+    ``grads``: the gradients where the parameters do not carry them whole
+    (a tensor-parallel step's, gathered from the shards)."""
+    out = {"loss": float(loss), "params": {n: p.detach().cpu().numpy() for n, p in model.named_parameters()},
+           "buffers": {n: b.cpu().numpy() for n, b in model.named_buffers()}}
+    out["grads"] = grads if grads is not None else {n: p.grad.cpu().numpy() for n, p in model.named_parameters()}
+    return out
+
+
+def grad_tolerance_share(got, ref, grad_atol_rel):
+    """The largest |g - g_ref| / (1e-4 |g_ref| + ``grad_atol_rel`` · the
+    leaf's largest |g_ref|) over the gradients ``ref`` names: at most 1
+    passes the gradient check of ``check_step``."""
+    return max(float((np.abs(got[n] - g) / np.maximum(1e-4 * np.abs(g) + grad_atol_rel * float(np.abs(g).max()),
+                                                      1e-45)).max())
+               for n, g in ref.items())
+
+
+def check_step(label, got, ref, grad_atol_rel=1e-6):
+    """Phase 5's bounds between two Adam steps' ``step_arrays`` (``got``
+    against ``ref``).  One step of f32 sums in other orders: the loss at
+    rtol 1e-5; the gradients at rtol 1e-4, entries below ``grad_atol_rel``
+    of their leaf's largest |g| held to that share of it; the updated
+    parameters at rtol 1e-5 / atol 1e-6 where Adam's first step is not
+    steep in g under that gradient error; the moving statistics at rtol
+    1e-5 / atol 1e-6.  Returns the readings."""
+    np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-5, err_msg=label)
+    excluded, worst = 0, {}
+    for n, g_ref in ref["grads"].items():
+        g_abs = np.abs(g_ref)
+        gmax = float(g_abs.max())
+        np.testing.assert_allclose(got["grads"][n], g_ref, rtol=1e-4, atol=grad_atol_rel * gmax,
+                                   err_msg=f"{label} {n}")
+        worst[n] = float(np.abs(got["grads"][n] - g_ref).max() / max(gmax, 1e-30))
+        # Adam's first step is lr·g/(|g| + eps) (lr 0.01, eps 1e-7), whose
+        # slope in g is lr·eps/(|g| + eps)²: compare the updated parameters
+        # where the gradient error the check above allows (a sign flip
+        # included) moves the step by less than the parameters' atol
+        g_err = 1e-4 * g_abs + grad_atol_rel * gmax
+        live = 0.01 * 1e-7 * g_err / (np.maximum(g_abs - g_err, 0.0) + 1e-7) ** 2 < 1e-6
+        excluded += int((~live).sum())
+        np.testing.assert_allclose(got["params"][n][live], ref["params"][n][live], rtol=1e-5, atol=1e-6,
+                                   err_msg=f"{label} {n}")
+    for n, b in ref["buffers"].items():
+        np.testing.assert_allclose(got["buffers"][n], b, rtol=1e-5, atol=1e-6, err_msg=f"{label} {n}")
+    return {"loss": got["loss"], "loss_reference": ref["loss"], "grad_max_rel_diff": worst,
+            "grad_max_tolerance_share": grad_tolerance_share(got["grads"], ref["grads"], grad_atol_rel),
+            "grad_atol_rel": grad_atol_rel, "adam_entries_excluded": excluded}
+
+
 def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, n_arcs=None,
                 loss_fn="categorical_crossentropy", phase="training", grad_atol_rel=1e-6, compile_kw=None,
                 fit_steps=10, expect_k=5.0, control=None, widths=None):
@@ -883,9 +971,7 @@ def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, 
     from gnnkeras_tpu_torch import kernels
     from gnnkeras_tpu_torch.training.trainer import train_step
 
-    model, model_cpu = make_model("cuda"), make_model("cpu")
-    for m in (model, model_cpu):
-        m.compile(optimizer="adam:0.01", loss=loss_fn, metrics=["accuracy"], **(compile_kw or {}))
+    model, model_cpu = (compiled(make_model(dev), loss_fn, **(compile_kw or {})) for dev in ("cuda", "cpu"))
     before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
 
     kernels.reset_launches()
@@ -895,56 +981,25 @@ def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, 
     launches = expect_launches(**per_step)
     logs_cpu, aux_cpu = train_step(model_cpu, b_cpu, model_cpu.next_rng())
 
-    # one step of f32 sums in other orders over ~139k nodes: the loss, the
-    # statistics and the gradients agree to rtol 1e-4; entries of a gradient
-    # below ``grad_atol_rel`` of its largest are held to that share of it
-    loss, loss_cpu = float(logs["loss_sum"] / logs["count"]), float(logs_cpu["loss_sum"] / logs_cpu["count"])
+    # over ~139k nodes, the statistics and the gradients agree to rtol 1e-4
     ks, ks_cpu = as_layers(aux["k"], float), as_layers(aux_cpu["k"], float)
     assert ks == ks_cpu and (expect_k is None or set(ks) == {expect_k}), (ks, ks_cpu)
     k = ks[0] if len(ks) == 1 else ks
-    np.testing.assert_allclose(loss, loss_cpu, rtol=1e-5)
-    params_cpu = dict(model_cpu.named_parameters())
-
-    def grad_share(m):
-        """The largest |g - g_cpu| / (1e-4 |g_cpu| + grad_atol_rel · the
-        leaf's largest |g_cpu|) over ``m``'s gradients: at most 1 passes."""
-        shares = {}
-        for n, p in m.named_parameters():
-            grad, grad_cpu = p.grad.cpu().numpy(), params_cpu[n].grad.numpy()
-            tol = 1e-4 * np.abs(grad_cpu) + grad_atol_rel * float(np.abs(grad_cpu).max())
-            shares[n] = float((np.abs(grad - grad_cpu) / np.maximum(tol, 1e-45)).max())
-        return max(shares.values())
-
-    excluded, worst = 0, {}
+    ref = step_arrays(model_cpu, logs_cpu["loss_sum"] / logs_cpu["count"])
+    step = check_step(label, step_arrays(model, logs["loss_sum"] / logs["count"]), ref, grad_atol_rel)
     for n, p in model.named_parameters():
-        grad, grad_cpu = p.grad.cpu().numpy(), params_cpu[n].grad.numpy()
-        gmax = float(np.abs(grad_cpu).max())
-        np.testing.assert_allclose(grad, grad_cpu, rtol=1e-4, atol=grad_atol_rel * gmax, err_msg=n)
-        worst[n] = float(np.abs(grad - grad_cpu).max() / max(gmax, 1e-30))
-        # Adam's first step is lr·g/(|g| + eps) (lr 0.01, eps 1e-7), whose
-        # slope in g is lr·eps/(|g| + eps)²: compare the updated parameters
-        # where the gradient error the check above allows (a sign flip
-        # included) moves the step by less than the parameters' atol
-        g_abs = np.abs(grad_cpu)
-        g_err = 1e-4 * g_abs + grad_atol_rel * gmax
-        live = 0.01 * 1e-7 * g_err / (np.maximum(g_abs - g_err, 0.0) + 1e-7) ** 2 < 1e-6
-        excluded += int((~live).sum())
-        np.testing.assert_allclose(p.detach().cpu().numpy()[live], params_cpu[n].detach().numpy()[live],
-                                   rtol=1e-5, atol=1e-6, err_msg=n)
         assert not np.array_equal(p.detach().cpu().numpy(), before[n].numpy()), n
-    buffers_cpu = dict(model_cpu.named_buffers())
-    for n, b in model.named_buffers():
-        np.testing.assert_allclose(b.cpu().numpy(), buffers_cpu[n].numpy(), rtol=1e-5, atol=1e-6, err_msg=n)
     res = {"phase": phase, "batch": label, "storage": storage_of(b_gpu), "k": k, "loss_fn": loss_fn,
-           "first_step_loss": loss, "first_step_loss_cpu": loss_cpu, "launches_per_step": launches,
-           "grad_max_rel_diff": worst, "grad_atol_rel": grad_atol_rel, "grad_max_tolerance_share": grad_share(model),
-           "adam_entries_excluded": excluded, "card": card}
+           "first_step_loss": step["loss"], "first_step_loss_cpu": step["loss_reference"],
+           "launches_per_step": launches, "grad_max_rel_diff": step["grad_max_rel_diff"],
+           "grad_atol_rel": grad_atol_rel, "grad_max_tolerance_share": step["grad_max_tolerance_share"],
+           "adam_entries_excluded": step["adam_entries_excluded"], "card": card}
     if control is not None:
-        bad = make_model("cuda")
-        bad.compile(optimizer="adam:0.01", loss=loss_fn, metrics=["accuracy"], **(compile_kw or {}))
+        bad = compiled(make_model("cuda"), loss_fn, **(compile_kw or {}))
         with control():
             train_step(bad, b_gpu, bad.next_rng())
-        res["control_grad_max_tolerance_share"] = grad_share(bad)
+        res["control_grad_max_tolerance_share"] = grad_tolerance_share(
+            {n: p.grad.cpu().numpy() for n, p in bad.named_parameters()}, ref["grads"], grad_atol_rel)
         assert res["control_grad_max_tolerance_share"] > 1.0, res["control_grad_max_tolerance_share"]
 
     if out_rows is not None:
@@ -1513,7 +1568,9 @@ def strip_scripts_section(card):
 
 
 PARTS = 4  # ranks of the partitioned engine, all on the one card
-CLGNN_LAYERS = 3  # phase 20's starter CLGNN: the starter's widths, 3 of its 5 layers
+# phases 18 and 20's starter CLGNN: the starter's widths, 3 of its 5 layers
+# (fewer layers keep the whole script's time down; the widths are all kept)
+CLGNN_LAYERS = 3
 
 
 class bf16_aggregation:
@@ -1746,18 +1803,21 @@ def model_family_section(card, sample, b_bench, b_bench_cpu):
           "nodes": int(comp.nodes.shape[0]), "arcs": n_arcs, "graphs": int(comp.num_graphs), "types": 1,
           "strip_storage": str(b_comp.strip.strip.dtype), "tiles": b_comp.num_nodes // 128})
     with host_initial_state():
-        family_serve("starter_clgnn", lambda dev: starter_clgnn(dev, seed=0), [composite_of(g) for g in sample],
-                     card)
-        clgnn, clgnn_cpu = starter_clgnn("cuda", seed=0), starter_clgnn("cpu", seed=0)
+        family_serve("starter_clgnn", lambda dev: starter_clgnn(dev, seed=0, layers=CLGNN_LAYERS),
+                     [composite_of(g) for g in sample], card)
+        clgnn = starter_clgnn("cuda", seed=0, layers=CLGNN_LAYERS)
+        clgnn_cpu = starter_clgnn("cpu", seed=0, layers=CLGNN_LAYERS)
         # no iteration is peeled at dim_state 10: one strip launch per iteration
         out["clgnn_fwd"] = family_forward("starter_clgnn", clgnn, clgnn_cpu, b_comp, b_comp_cpu, card,
                                           lambda ks: {"strip_matmul": sum(ks)}, n_arcs)
-        # 5 layers × 5 aggregations; each layer's first reads its random state₀
-        # gradients through 5 layers of 5 iterations: entries below 1e-4 of
+        # 3 layers × 5 aggregations; each layer's first reads its random state₀
+        # gradients through 3 layers of 5 iterations: entries below 1e-4 of
         # their leaf's largest |g| are held to that share of it (PERF.md,
         # PR 11: phase 5's 1e-6 fails here), with the bf16 control
-        out["clgnn_step"] = train_phase("starter_clgnn", lambda dev: starter_clgnn(dev, seed=0), b_comp, b_comp_cpu,
-                                        card, dict(strip_matmul=25, strip_matmul_t=20), out_rows=comp.num_graphs,
+        out["clgnn_step"] = train_phase("starter_clgnn", lambda dev: starter_clgnn(dev, seed=0, layers=CLGNN_LAYERS),
+                                        b_comp, b_comp_cpu, card,
+                                        dict(strip_matmul=5 * CLGNN_LAYERS, strip_matmul_t=4 * CLGNN_LAYERS),
+                                        out_rows=comp.num_graphs,
                                         n_arcs=n_arcs, phase="model_family_training", fit_steps=3, expect_k=None,
                                         compile_kw=dict(training_mode="parallel", average_st_grads=True),
                                         grad_atol_rel=1e-4, control=bf16_aggregation)
@@ -2727,10 +2787,7 @@ def partitioned_section(card, g, batch, mps):
     state_ref, out_ref = state_ref[:n].cpu().numpy(), out_ref[mask_ref].cpu().numpy()
     model.compile(optimizer="adam:0.01", loss="mse")
     logs_ref, _ = train_step(model, batch, model.next_rng())
-    loss_ref = float(logs_ref["loss_sum"] / logs_ref["count"])
-    params_ref = {nm: p.detach().cpu().numpy() for nm, p in model.named_parameters()}
-    grads_ref = {nm: p.grad.cpu().numpy() for nm, p in model.named_parameters()}
-    buffers_ref = {nm: b.cpu().numpy() for nm, b in model.named_buffers()}
+    ref_step = step_arrays(model, logs_ref["loss_sum"] / logs_ref["count"])
     del model
     torch.cuda.empty_cache()
 
@@ -2762,24 +2819,11 @@ def partitioned_section(card, g, batch, mps):
     # one Adam step: the tolerances of phase 14 (a bias gradient sums 500,000
     # terms of both signs: entries below 1e-4 of the leaf's largest |g| are
     # held to that share of it; parameters where Adam's step is not steep)
-    excluded, worst = 0, {}
-    for r in ranks:
-        step = r["step"]
-        assert step["k"] == 5.0
-        np.testing.assert_allclose(step["loss"], loss_ref, rtol=1e-5)
-        for nm, grad in step["grads"].items():
-            g_ref = grads_ref[nm]
-            gmax = float(np.abs(g_ref).max())
-            np.testing.assert_allclose(grad, g_ref, rtol=1e-4, atol=1e-4 * gmax, err_msg=nm)
-            worst[nm] = max(worst.get(nm, 0.0), float(np.abs(grad - g_ref).max() / max(gmax, 1e-30)))
-            g_abs = np.abs(g_ref)
-            g_err = 1e-4 * g_abs + 1e-4 * gmax
-            live = 0.01 * 1e-7 * g_err / (np.maximum(g_abs - g_err, 0.0) + 1e-7) ** 2 < 1e-6
-            excluded += int((~live).sum())
-            np.testing.assert_allclose(step["params"][nm][live], params_ref[nm][live], rtol=1e-5, atol=1e-6,
-                                       err_msg=nm)
-        for nm, b in step["buffers"].items():
-            np.testing.assert_allclose(b, buffers_ref[nm], rtol=1e-5, atol=1e-6, err_msg=nm)
+    assert all(r["step"]["k"] == 5.0 for r in ranks)
+    steps = [check_step(f"partitioned step rank {r['rank']}", r["step"], ref_step, grad_atol_rel=1e-4)
+             for r in ranks]
+    worst = {nm: max(st["grad_max_rel_diff"][nm] for st in steps) for nm in ref_step["grads"]}
+    excluded = sum(st["adam_entries_excluded"] for st in steps)
     emit({"phase": "partitioned", "parts": PARTS, "ranks_s": ranks_s,
           "ranks_share_the_card": "time-sliced (no MPS server running)", "mps_probe": mps,
           "ring": {r["rank"]: r["ring"] for r in ranks},
@@ -2790,7 +2834,7 @@ def partitioned_section(card, g, batch, mps):
                        "forward_pallas_ring": ranks[0]["pallas_ring"]["launches"],
                        "train_step": ranks[0]["step"]["launches"]},
           "vs_single_device": {t: out[t] for t in ("collective", "pallas_ring")},
-          "step_loss": ranks[0]["step"]["loss"], "step_loss_single_device": loss_ref,
+          "step_loss": ranks[0]["step"]["loss"], "step_loss_single_device": ref_step["loss"],
           "grad_max_rel_diff": worst, "adam_entries_excluded": excluded, "card": card})
     out["fit"] = partitioned_fit_checks(ranks, card)
     return out
@@ -2823,6 +2867,473 @@ def partitioned_fit_checks(ranks, card):
            "checkpoint_steps": first["whole_steps"], "resumed": first["resumed"], "card": card}
     emit(res)
     return res
+
+
+# -- phase 21: data-parallel, packed, tensor-parallel and hybrid training ----------------
+
+DIST_RANKS = 4  # phase 21's ranks, all on the one card
+
+
+def packed_positions(g):
+    """The batch row of each node of the merged graph-focused ``g`` under
+    slot-128 packing (as ``from_graph_object(slot_pack=128)`` places them)."""
+    from gnnkeras_tpu_torch.graph.packing import pack_slots, positions_from_starts
+
+    sizes = np.bincount(g.graph_of_node.astype(np.int64), minlength=max(g.num_graphs, 1))
+    starts, _ = pack_slots(sizes, slot=128, tile=128)
+    return positions_from_starts(g.graph_of_node, starts)
+
+
+def tp_step_grads(tp, local, gnn):
+    """A tensor-parallel step's gradients, keyed as ``gnn``'s parameters:
+    the state net's gathered from the shards over ``tp``'s group
+    (``gather_variables`` on each shard's gradients), the output net's as
+    the step left them (summed over the group).  A collective."""
+    import torch.distributed as tdist
+
+    mine = {**{n: v.detach().cpu() for n, v in local.state_dict().items()},
+            **{n: p.grad.cpu() for n, p in local.named_parameters()}}
+    shards = [None] * tdist.get_world_size(tp.group)
+    tdist.all_gather_object(shards, mine, group=tp.group)
+    full = tp.gather_variables(shards)
+    grads = {f"net_state.{n}": full[n].numpy() for n, _ in gnn.net_state.named_parameters()}
+    grads.update({f"net_output.{n}": p.grad.cpu().numpy() for n, p in gnn.net_output.named_parameters()})
+    return grads
+
+
+def _timed(fn, reps=5):
+    """Median host ms of ``fn`` (the ranks meet at a barrier first)."""
+    import torch
+
+    ts = []
+    for _ in range(reps):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ts)), ts
+
+
+def _launched():
+    from gnnkeras_tpu_torch import kernels
+
+    return {name: n for name, n in kernels.LAUNCHES.items() if n}
+
+
+def _dist_rank(rank, world, inp, ck):
+    """Phase 21 on one rank (a spawned process on the card): a-e of
+    ``distributed_section``, each with its launches counted from 0.  Returns
+    NumPy results for the parent to compare."""
+    import torch
+    from gnnkeras_tpu_torch import kernels
+    from gnnkeras_tpu_torch.data import MultiGraphSequencer
+    from gnnkeras_tpu_torch.data.synthetic import flagship_gnn, flagship_lgnn, large_graph_gnn
+    from gnnkeras_tpu_torch.parallel.data_parallel import DataParallelTrainer, make_dp_train_step
+    from gnnkeras_tpu_torch.parallel.hybrid import make_hybrid_train_step
+    from gnnkeras_tpu_torch.parallel.mesh import make_mesh, rank_device, rank_generator
+    from gnnkeras_tpu_torch.parallel.multihost import make_multihost_mesh
+    from gnnkeras_tpu_torch.parallel.packed import PackedPartitionedGNN, PackedPartitionedLGNN
+    from gnnkeras_tpu_torch.parallel.partition import PartitionedGNN
+    from gnnkeras_tpu_torch.parallel.tensor_parallel import TensorParallelGNN
+
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    res = {"rank": rank, "leg_s": {}}
+    t_leg = time.perf_counter()
+
+    def leg_done(name):
+        nonlocal t_leg
+        res["leg_s"][name] = time.perf_counter() - t_leg
+        t_leg = time.perf_counter()
+
+    # -- a. the packed flagship ---------------------------------------------------
+    batch = inp["packed"].to(dev)
+    engine = PackedPartitionedGNN(compiled(flagship_gnn(dev, seed=0)))
+    kernels.reset_launches()
+    k, state, out, _, _ = engine.forward(batch)
+    torch.cuda.synchronize()
+    res["packed_fwd"] = {"k": float(k), "state": state.cpu().numpy(), "out": out.cpu().numpy(),
+                         "launches": _launched()}
+    kernels.reset_launches()
+    logs = engine.train_step(batch)
+    torch.cuda.synchronize()
+    res["packed_step"] = {**step_arrays(engine.gnn, logs["loss"]), "k": float(logs["k"]), "launches": _launched()}
+    res["packed_fwd"]["forward_ms"], res["packed_fwd"]["forward_ms_all"] = _timed(lambda: engine.forward(batch))
+    res["packed_step"]["train_step_ms"], res["packed_step"]["train_step_ms_all"] = _timed(
+        lambda: engine.train_step(batch))
+    leg_done("packed")
+
+    # -- b. the packed 3-layer LGNN (residual) -------------------------------------
+    def lgnn():
+        return compiled(flagship_lgnn(dev, seed=0, layers=3), training_mode="residual", average_st_grads=True)
+
+    engine = PackedPartitionedLGNN(lgnn())
+    kernels.reset_launches()
+    with strip_widths() as widths:
+        ks, states, outs, _, _ = engine.forward(batch)
+        torch.cuda.synchronize()
+    res["lgnn_fwd"] = {"k": [float(x) for x in ks], "states": [s.cpu().numpy() for s in states],
+                       "outs": [o.cpu().numpy() for o in outs], "launches": _launched(), "widths": widths.tally}
+    with bf16_aggregation():
+        _, states, outs, _, _ = engine.forward(batch)
+    res["lgnn_fwd"]["control"] = {"states": [s.cpu().numpy() for s in states], "outs": [o.cpu().numpy() for o in outs]}
+    kernels.reset_launches()
+    with strip_widths() as widths:
+        logs = engine.train_step(batch)
+        torch.cuda.synchronize()
+    res["lgnn_step"] = {**step_arrays(engine.gnn, logs["loss"]), "launches": _launched(), "widths": widths.tally}
+    res["lgnn_step"]["train_step_ms"], _ = _timed(lambda: engine.train_step(batch), reps=3)
+    bad = PackedPartitionedLGNN(lgnn())
+    with bf16_aggregation():
+        bad.train_step(batch)
+    res["lgnn_step"]["control_grads"] = {n: p.grad.cpu().numpy() for n, p in bad.gnn.named_parameters()}
+    del engine, bad, batch
+    leg_done("packed_lgnn")
+
+    # -- c. data parallelism over phase 19's sequencer ------------------------------
+    train_g, val_g = inp["dp_graphs"]
+    seq_kw = dict(batch_size=1000, slot_pack=128, strip_dtype="int8", device=dev)
+
+    def sequencer(graphs, shuffle=True):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # parallel arcs: the bf16 latch
+            return MultiGraphSequencer(graphs, "g", "average", shuffle=shuffle, **seq_kw)
+
+    model = compiled(flagship_gnn(dev, seed=0))
+    trainer = DataParallelTrainer(model)
+    seq, val = sequencer(train_g), sequencer(val_g, shuffle=False)
+    batch, weight = trainer.rank_batches(seq)[0]
+    kernels.reset_launches()
+    logs = make_dp_train_step(model)(batch, weight, rank_generator(model, trainer.rank))
+    torch.cuda.synchronize()
+    res["dp_step"] = {**step_arrays(model, logs["loss_sum"] / logs["count"]), "weight": weight,
+                      "launches": _launched()}
+
+    def dp_fit(seq, **kw):
+        m = compiled(flagship_gnn(dev, seed=0))
+        t = time.perf_counter()
+        history = DataParallelTrainer(m).fit(seq, verbose=0, **kw).history
+        torch.cuda.synchronize()
+        return {"history": history, "state": {n: v.cpu().numpy() for n, v in m.state_dict().items()},
+                "s": time.perf_counter() - t}
+
+    np.random.seed(0)
+    kernels.reset_launches()
+    # ``seq`` has served only its epoch-0 batches (no shuffle yet): the whole fit starts from them
+    res["dp_fit"] = dp_fit(seq, epochs=2, validation_data=val, checkpoint_dir=os.path.join(ck, "dp_whole"))
+    res["dp_fit"]["launches"] = _launched()
+    np.random.seed(0)
+    resumed = sequencer(train_g)  # one sequencer for both legs: its epoch-1 order is the whole fit's
+    dp_fit(resumed, epochs=1, checkpoint_dir=os.path.join(ck, "dp_resume"))
+    res["dp_resumed"] = dp_fit(resumed, epochs=2, checkpoint_dir=os.path.join(ck, "dp_resume"), resume=True)
+    del seq, val, resumed, model, trainer
+    leg_done("data_parallel")
+
+    # -- d. tensor parallelism over the model's 14 state features ---------------------
+    bench = inp["bench"].to(dev)
+    engine = TensorParallelGNN(compiled(flagship_gnn(dev, seed=0)))
+    kernels.reset_launches()
+    k, _, out = engine.forward(bench)
+    torch.cuda.synchronize()
+    res["tp_fwd"] = {"k": float(k), "out": out.cpu().numpy(), "launches": _launched()}
+    kernels.reset_launches()
+    logs = engine.train_step(bench)
+    torch.cuda.synchronize()
+    launches = _launched()
+    res["tp_local"] = {n: tuple(p.shape) for n, p in engine.local.named_parameters()}
+    grads = tp_step_grads(engine.tp_state, engine.local, engine.gnn)
+    engine.gather_into_model()
+    res["tp_step"] = {**step_arrays(engine.gnn, logs["loss"], grads), "launches": launches}
+    res["tp_fwd"]["forward_ms"], _ = _timed(lambda: engine.forward(bench))
+    del engine, bench
+    leg_done("tensor_parallel")
+
+    # -- e. hybrid data × graph (× model), and the multi-host mesh ---------------------
+    two = make_mesh(("data", "graph"), (2, 2))
+    shard = inp["hybrid2"].to(dev)
+
+    def hybrid(mesh, shard, **kw):
+        model = compiled(large_graph_gnn(dev, seed=0), loss="mse")
+        groups = {"model_group": mesh.group("model")} if kw else {}
+        engine = PartitionedGNN(model, mesh.group("graph"), **kw, **groups)
+        step = make_hybrid_train_step(engine, mesh)
+        kernels.reset_launches()
+        with strip_widths() as widths:
+            logs = step(shard)
+            torch.cuda.synchronize()
+        launches = _launched()
+        grads = None
+        if kw:
+            grads = tp_step_grads(engine.tp_state, engine.tp_local, model)
+            engine.gather_tp_into_model()
+        out = {**step_arrays(model, logs["loss"], grads), "launches": launches, "widths": widths.tally}
+        out["train_step_ms"], _ = _timed(lambda: step(shard), reps=3)
+        return out, engine
+
+    res["hybrid2"], _ = hybrid(two, shard)
+    three = make_mesh(("data", "graph", "model"), (1, 2, 2))
+    res["hybrid3"], engine = hybrid(three, inp["hybrid3"].to(dev), tp_shards=2)
+    res["hybrid3"]["local"] = {n: tuple(p.shape) for n, p in engine.tp_local.named_parameters()}
+    os.environ.update(inp["host_env"])
+    host_mesh = make_multihost_mesh(2, 2)
+    res["multihost"] = {"shape": host_mesh.shape, "coords": host_mesh.coords}
+    res["multihost"].update(hybrid(host_mesh, shard)[0])
+    leg_done("hybrid")
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return res
+
+
+def distributed_section(card, bench, b_bench, b_bench_cpu, g_large, b_large):
+    """Phase 21 (module docstring): the references on the single card, the
+    4 ranks (``_dist_rank``) and every check against them.  Returns what
+    the kernels line reads."""
+    import dataclasses
+
+    import torch
+    from gnnkeras_tpu_torch.data import MultiGraphSequencer, dataset_splits
+    from gnnkeras_tpu_torch.data.synthetic import flagship_gnn, flagship_lgnn, large_graph_gnn, random_molecules
+    from gnnkeras_tpu_torch.parallel.launch import spawn
+    from gnnkeras_tpu_torch.parallel.multihost import comm_volume
+    from gnnkeras_tpu_torch.parallel.packed import partition_packed, split_merged_by_graph
+    from gnnkeras_tpu_torch.parallel.partition import partition_graph
+    from gnnkeras_tpu_torch.tools.multihost_sim import host_env
+    from gnnkeras_tpu_torch.training.trainer import _load_bn_state, _objective, _optimizer, train_step
+
+    out, t0 = {}, time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # parallel arcs: bf16 strips, as in JAX
+        parts, meta = partition_packed(bench, DIST_RANKS, slot_pack=128, strip_dtype="int8", device="cpu")
+    packed_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pg = partition_graph(g_large, 2, dense_blocks=True, agg_dtype="auto")
+    hybrid_build_s = time.perf_counter() - t0
+    emit({"phase": "distributed_inputs", "packed_build_s": packed_build_s, "hybrid_partition_build_s": hybrid_build_s,
+          "packed_tiles": parts[0].num_nodes // 128, "packed_graphs": [len(ids) for ids in meta.groups],
+          "packed_strip_storage": str(parts[0].strip.strip.dtype).replace("torch.", ""),
+          "hybrid_nodes_per_part": pg.nodes_per_part, "hybrid_offsets": list(pg.local_ops[0].offsets)})
+    # rows 1/1b on the ranks' own operators at the widths the ranks launch
+    # them: packed part 0 at the flagship's d 16 and the 3-layer LGNN's 32
+    # and 48; hybrid part 0's local main diagonal at the large model's d 8
+    part0 = parts[0].strip.to("cuda")
+    out["checks"] = {(d, name): check_strip(part0, "packed_part_0", timed=True, name=name, d=d)
+                     for d in (16, 32, 48) for name in ("strip_matmul", "strip_matmul_t")}
+    local0 = pg.local_ops[0]
+    diag0 = local0.diags[list(local0.offsets).index(0)].to("cuda")
+    out["hybrid_checks"] = {name: check_strip(diag0, "hybrid_part_0_diagonal_0", timed=True, name=name, d=8)
+                            for name in ("strip_matmul", "strip_matmul_t")}
+    del part0, diag0
+
+    # -- the single card's references ---------------------------------------------------
+    model = flagship_gnn("cuda", seed=0)
+    k, state, o, _, _ = model.forward(b_bench)
+    ref_fwd = {"k": float(k), "state": state.cpu().numpy(), "out": o.cpu().numpy()[b_bench.host_pred_rows]}
+    model = compiled(model)
+    logs, _ = train_step(model, b_bench, model.next_rng())
+    ref_step = step_arrays(model, logs["loss_sum"] / logs["count"])
+    lgnn = flagship_lgnn("cuda", seed=0, layers=3)
+    ks, states, outs, _, _ = lgnn.forward(b_bench)
+    ref_lgnn = {"k": [float(x) for x in ks], "states": [s.cpu().numpy() for s in states],
+                "outs": [o.cpu().numpy()[b_bench.host_pred_rows] for o in outs]}
+    lgnn = compiled(lgnn, training_mode="residual", average_st_grads=True)
+    logs, _ = train_step(lgnn, b_bench, lgnn.next_rng())
+    ref_lgnn_step = step_arrays(lgnn, logs["loss_sum"] / logs["count"])
+    del model, lgnn
+
+    # data parallelism: one Adam step on the mean of phase 19's three batches
+    train_g, _, val_g = dataset_splits(random_molecules(4337, seed=0, min_nodes=5, max_nodes=56), seed=0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        seq = MultiGraphSequencer(train_g, "g", "average", batch_size=1000, slot_pack=128, strip_dtype="int8",
+                                  device="cuda")
+    assert len(seq) == 3
+
+    def averaged_step(model, batches):
+        """One optimizer step on the mean of ``batches``' gradients and new
+        moving statistics, and the mean of their losses."""
+        grads, stats, losses = [], [], []
+        for b in batches:
+            model.zero_grad(set_to_none=True)
+            loss, aux = _objective(model, b, model.next_rng(), training=True)
+            loss.backward()
+            grads.append([p.grad.clone() for p in model.parameters()])
+            stats.append(aux["new_state"])
+            losses.append(loss.detach())
+        for p, *gs in zip(model.parameters(), *grads):
+            p.grad = sum(gs) / len(gs)
+        _optimizer(model).step()
+        _load_bn_state(model, {key: sum(s[key] for s in stats) / len(stats) for key in stats[0]})
+        return step_arrays(model, sum(losses) / len(losses))
+
+    ref_dp = averaged_step(compiled(flagship_gnn("cuda", seed=0)), [seq[i] for i in range(3)])
+    del seq
+
+    # hybrid: replica 1 is the large graph with a second draw of its targets
+    n = int(g_large.nodes.shape[0])
+    out_idx = np.flatnonzero(g_large.output_mask)
+    assert np.array_equal(b_large.targets[:n].cpu().numpy()[out_idx], g_large.targets)
+    t2 = np.random.default_rng(1).normal(size=g_large.targets.shape).astype(np.float32)
+    full2 = np.zeros((len(g_large.output_mask), t2.shape[1]), np.float32)
+    full2[out_idx] = t2
+    chunk = -(-n // pg.n_parts)
+    targets2 = np.zeros_like(pg.targets)
+    for p in range(pg.n_parts):
+        lo, hi = p * chunk, min((p + 1) * chunk, n)
+        targets2[p, :hi - lo] = full2[lo:hi]
+    pg2 = dataclasses.replace(pg, targets=targets2)
+    b_large2 = b_large.replace(targets=b_large.targets.clone())
+    b_large2.targets[torch.as_tensor(out_idx, device=b_large.targets.device)] = torch.as_tensor(t2, device="cuda")
+    ref_h2 = averaged_step(compiled(large_graph_gnn("cuda", seed=0), loss="mse"), [b_large, b_large2])
+    m3 = compiled(large_graph_gnn("cuda", seed=0), loss="mse")
+    logs, _ = train_step(m3, b_large, m3.next_rng())
+    ref_h3 = step_arrays(m3, logs["loss_sum"] / logs["count"])
+    cv = comm_volume(pg, m3, state_width=8, n_iterations=5)
+    del m3, b_large2
+    torch.cuda.empty_cache()
+
+    inputs = [{"packed": parts[r], "bench": b_bench_cpu, "hybrid2": (pg if r < 2 else pg2).shard(r % 2, "cpu"),
+               "hybrid3": pg.shard(r // 2, "cpu"), "host_env": host_env(r, 2), "dp_graphs": (train_g, val_g)}
+              for r in range(DIST_RANKS)]
+    ck = tempfile.mkdtemp(dir=os.path.join(REPO, "gnnkeras_tpu_torch", "_build"))
+    t0 = time.perf_counter()
+    ranks = spawn(_dist_rank, DIST_RANKS, [(inp, ck) for inp in inputs], threads=2, timeout_s=900)
+    out["ranks_s"] = time.perf_counter() - t0
+    out["ranks"] = ranks
+
+    # -- a. packed flagship: forward at phase 4's bounds, one step at phase 5's --------
+    pos_m = packed_positions(bench)
+    got_state = np.zeros_like(ref_fwd["state"])
+    for p, r in enumerate(ranks):
+        sub = split_merged_by_graph(bench, meta.groups[p])
+        rows = pos_m[np.flatnonzero(np.isin(bench.graph_of_node, meta.groups[p]))]
+        got_state[rows] = r["packed_fwd"]["state"][packed_positions(sub)]
+        assert r["packed_fwd"]["k"] == ref_fwd["k"] == 5.0
+        assert r["packed_fwd"]["launches"] == {"strip_matmul": 4}, r["packed_fwd"]["launches"]
+        assert r["packed_step"]["launches"] == {"strip_matmul": 4, "strip_matmul_t": 4}, r["packed_step"]["launches"]
+    real = b_bench_cpu.node_mask.numpy()
+    np.testing.assert_allclose(got_state[real], ref_fwd["state"][real], rtol=1e-5, atol=1e-6, err_msg="packed state")
+    got_out = meta.merge_outputs([r["packed_fwd"]["out"] for r in ranks])
+    np.testing.assert_allclose(got_out, ref_fwd["out"], rtol=1e-5, atol=1e-6, err_msg="packed out")
+    packed_step = [check_step("packed step", r["packed_step"], ref_step) for r in ranks]
+    emit({"phase": "packed", "ranks": DIST_RANKS, "graphs_per_rank": [len(ids) for ids in meta.groups],
+          "tiles_per_rank": parts[0].num_nodes // 128, "state_max_abs_diff": float(
+              np.abs(got_state[real] - ref_fwd["state"][real]).max()),
+          "out_max_abs_diff": float(np.abs(got_out - ref_fwd["out"]).max()), "step": packed_step[0],
+          "launches": {"forward": ranks[0]["packed_fwd"]["launches"],
+                       "train_step": ranks[0]["packed_step"]["launches"]},
+          "forward_ms": [r["packed_fwd"]["forward_ms"] for r in ranks],
+          "train_step_ms": [r["packed_step"]["train_step_ms"] for r in ranks], "card": card})
+
+    # -- b. packed LGNN: phase 18's deep-stack bounds with the bf16 control ------------
+    phase4, deep = (1e-5, 1e-6), (1e-4, 1e-5)
+
+    def lgnn_checks(leg):
+        """(name, got, want, tolerance) of every state (real nodes, merged
+        order) and output (graph order) of the 3 layers."""
+        found = []
+        for i in range(3):
+            s = np.zeros_like(ref_lgnn["states"][i])
+            for p, r in enumerate(ranks):
+                sub = split_merged_by_graph(bench, meta.groups[p])
+                rows = pos_m[np.flatnonzero(np.isin(bench.graph_of_node, meta.groups[p]))]
+                s[rows] = leg(r)["states"][i][packed_positions(sub)]
+            found.append((f"state layer {i}", s[real], ref_lgnn["states"][i][real], phase4 if i == 0 else deep))
+            o = meta.merge_outputs([leg(r)["outs"][i] for r in ranks])
+            found.append((f"out layer {i}", o, ref_lgnn["outs"][i], phase4))
+        return found
+
+    def share(a, b, tol):
+        return float((np.abs(a - b) / (tol[1] + tol[0] * np.abs(b))).max())
+
+    found = lgnn_checks(lambda r: r["lgnn_fwd"])
+    control = max(share(a, b, tol) for name, a, b, tol in lgnn_checks(lambda r: r["lgnn_fwd"]["control"])
+                  if name.startswith("state") and name != "state layer 0")
+    lgnn_step = [check_step("packed lgnn step", r["lgnn_step"], ref_lgnn_step, grad_atol_rel=1e-3) for r in ranks]
+    step_control = max(grad_tolerance_share(r["lgnn_step"]["control_grads"], ref_lgnn_step["grads"], 1e-3)
+                       for r in ranks)
+    lgnn_res = {"phase": "packed_lgnn", "layers": 3, "mode": "residual", "k": ranks[0]["lgnn_fwd"]["k"],
+                "tolerance": {name: tol for name, _, _, tol in found},
+                "tolerance_share": {name: share(a, b, tol) for name, a, b, tol in found},
+                "phase4_tolerance_share": {name: share(a, b, phase4) for name, a, b, _ in found},
+                "control_tolerance_share": control, "step": lgnn_step[0], "step_control_grad_share": step_control,
+                "launches": {"forward": ranks[0]["lgnn_fwd"]["launches"],
+                             "train_step": ranks[0]["lgnn_step"]["launches"]},
+                "train_step_ms": [r["lgnn_step"]["train_step_ms"] for r in ranks], "card": card}
+    emit(lgnn_res)
+    assert all(r["lgnn_fwd"]["k"] == ref_lgnn["k"] == [5.0] * 3 for r in ranks)
+    for name, a, b, tol in found:
+        np.testing.assert_allclose(a, b, rtol=tol[0], atol=tol[1], err_msg=f"packed lgnn {name}")
+    assert control > 1.0 and step_control > 1.0, (control, step_control)
+    # layer 0 peels iteration 0: 4 + 5 + 5 aggregations at d 16, 32 and 48, and as many backward
+    per_width = {16: 4, 32: 5, 48: 5}
+    for r in ranks:
+        assert r["lgnn_fwd"]["launches"] == {"strip_matmul": 14}, r["lgnn_fwd"]["launches"]
+        assert r["lgnn_step"]["launches"] == {"strip_matmul": 14, "strip_matmul_t": 14}, r["lgnn_step"]["launches"]
+        assert r["lgnn_fwd"]["widths"] == {("strip_matmul", d): n for d, n in per_width.items()}, r["lgnn_fwd"]
+        assert r["lgnn_step"]["widths"] == {(name, d): n for name in ("strip_matmul", "strip_matmul_t")
+                                            for d, n in per_width.items()}, r["lgnn_step"]["widths"]
+
+    # -- c. data parallelism ------------------------------------------------------------
+    assert [r["dp_step"]["weight"] for r in ranks] == [1.0, 1.0, 1.0, 0.0]
+    dp_step = [check_step("data-parallel step", r["dp_step"], ref_dp) for r in ranks]
+    first = ranks[0]
+    for r in ranks:
+        assert r["dp_step"]["launches"] == {"strip_matmul": 4, "strip_matmul_t": 4}, r["dp_step"]["launches"]
+        assert r["dp_fit"]["history"] == first["dp_fit"]["history"]
+        for key in ("dp_fit", "dp_resumed"):
+            for name, value in first["dp_fit"]["state"].items():
+                np.testing.assert_array_equal(r[key]["state"][name], value, err_msg=f"{key} rank {r['rank']} {name}")
+    assert first["dp_resumed"]["history"]["loss"] == first["dp_fit"]["history"]["loss"][1:]
+    assert len(first["dp_fit"]["history"]["val_loss"]) == 2
+    emit({"phase": "data_parallel", "ranks": DIST_RANKS, "batches": 3, "filler_rank": 3, "step": dp_step[0],
+          "fit": first["dp_fit"]["history"], "fit_s": [r["dp_fit"]["s"] for r in ranks],
+          "resumed": first["dp_resumed"]["history"], "launches": {"train_step": first["dp_step"]["launches"],
+                                                                 "fit_2_epochs": first["dp_fit"]["launches"]},
+          "card": card})
+
+    # -- d. tensor parallelism ------------------------------------------------------------
+    rows = b_bench_cpu.host_pred_rows
+    for r in ranks:
+        assert r["tp_fwd"]["k"] == 5.0 and r["tp_fwd"]["launches"] == {"strip_matmul": 4}, r["tp_fwd"]
+        assert r["tp_step"]["launches"] == {"strip_matmul": 4, "strip_matmul_t": 4}, r["tp_step"]["launches"]
+        assert r["tp_local"]["layers.1.kernel"][1] == 4, r["tp_local"]  # 14 features padded to 16: 4 a rank
+        np.testing.assert_allclose(r["tp_fwd"]["out"][rows], ref_fwd["out"], rtol=1e-5, atol=1e-6, err_msg="tp out")
+    tp_step = [check_step("tensor-parallel step", r["tp_step"], ref_step) for r in ranks]
+    emit({"phase": "tensor_parallel", "ranks": DIST_RANKS, "state_features": 14, "padded": 16, "per_rank": 4,
+          "out_max_abs_diff": max(float(np.abs(r["tp_fwd"]["out"][rows] - ref_fwd["out"]).max()) for r in ranks),
+          "step": tp_step[0], "launches": {"forward": ranks[0]["tp_fwd"]["launches"],
+                                           "train_step": ranks[0]["tp_step"]["launches"]},
+          "forward_ms": [r["tp_fwd"]["forward_ms"] for r in ranks], "card": card})
+
+    # -- e. hybrid and multi-host ---------------------------------------------------------
+    h2 = [check_step("hybrid data 2 x graph 2 step", r["hybrid2"], ref_h2, grad_atol_rel=1e-4) for r in ranks]
+    h3 = [check_step("hybrid data 1 x graph 2 x model 2 step", r["hybrid3"], ref_h3, grad_atol_rel=1e-4)
+          for r in ranks]
+    for r in ranks:
+        launches = r["hybrid2"]["launches"]
+        assert launches.get("strip_matmul", 0) > 0 and launches.get("strip_matmul_t", 0) > 0, launches
+        assert set(launches) == {"strip_matmul", "strip_matmul_t"} and r["hybrid3"]["launches"] == launches
+        # every launch at the large model's 8 state rows, the width of the diagonal's check
+        assert r["hybrid2"]["widths"] == r["hybrid3"]["widths"] == {(name, 8): n for name, n in launches.items()}, \
+            r["hybrid2"]["widths"]
+        assert r["hybrid3"]["local"]["layers.1.kernel"][1] == 4, r["hybrid3"]["local"]  # 8 features: 4 a rank
+        assert r["multihost"]["shape"] == (2, 2) and r["multihost"]["coords"] == (r["rank"] // 2, r["rank"] % 2)
+        # the same program on the same layout as the first hybrid step: bit for bit
+        for key in ("params", "buffers"):
+            for name, value in r["hybrid2"][key].items():
+                np.testing.assert_array_equal(r["multihost"][key][name], value, err_msg=f"multihost {name}")
+    emit({"phase": "hybrid", "ranks": DIST_RANKS, "two_axis": {"mesh": [2, 2], "step": h2[0]},
+          "three_axis": {"mesh": [1, 2, 2], "state_features_per_rank": 4, "step": h3[0]},
+          "multihost_mesh": {"hosts": 2, "per_host": 2, "equals_two_axis_bit_for_bit": True},
+          "launches": {"two_axis": ranks[0]["hybrid2"]["launches"], "three_axis": ranks[0]["hybrid3"]["launches"]},
+          "train_step_ms": {"two_axis": [r["hybrid2"]["train_step_ms"] for r in ranks],
+                            "three_axis": [r["hybrid3"]["train_step_ms"] for r in ranks],
+                            "multihost": [r["multihost"]["train_step_ms"] for r in ranks]},
+          "comm_volume": dataclasses.asdict(cv), "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+          "ranks_s": out["ranks_s"], "rank_leg_s": {leg: [r["leg_s"][leg] for r in ranks] for leg in ranks[0]["leg_s"]},
+          "card": card})
+    return out
 
 
 def main():
@@ -3065,6 +3576,11 @@ def main():
     t_phase = time.perf_counter()
     scanned = scanned_epoch_section(card, pipeline["splits"])
     times["scanned_epoch"] = time.perf_counter() - t_phase
+
+    # -- 21. data-parallel, packed, tensor-parallel and hybrid training ----------------
+    t_phase = time.perf_counter()
+    dist = distributed_section(card, bench, b_bench, b_bench_cpu, large["graph"], large["batch"])
+    times["distributed"] = time.perf_counter() - t_phase
     emit({"phase": "timing", "phase_s": times, "total_s": time.perf_counter() - t_start})
 
     # -- kernels, card, verdict ----------------------------------------------
@@ -3190,6 +3706,29 @@ def main():
         *[entry(f"{name}_scanned_epoch_arc", inc_src, "gnnkeras_tpu/ops/incidence.py:375",
                 scanned["arc"]["replay"]["launches"].get(name, 0), scanned["checks"][name])
           for name in ("incidence_select", "incidence_scatter")],
+        # phase 21, rows 1/1b on the distributed paths, launches per rank (rank
+        # 0 of 4): the packed flagship and the packed 3-layer LGNN at each of
+        # its widths (checked on packed part 0's own operator at that width),
+        # one data-parallel step (a sequencer batch's operator, phase 19's
+        # check), the tensor-parallel step (the bench operator, phase 2's
+        # check) and the hybrid steps' banded diagonals (checked on hybrid
+        # part 0's local main diagonal)
+        *[entry(f"{name}_packed", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+                dist["ranks"][0]["packed_step"]["launches"][name], dist["checks"][(16, name)])
+          for name in ("strip_matmul", "strip_matmul_t")],
+        *[entry(f"{name}_packed_lgnn_d{d}", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+                dist["ranks"][0]["lgnn_step"]["widths"][(name, d)], dist["checks"][(d, name)])
+          for d in (16, 32, 48) for name in ("strip_matmul", "strip_matmul_t")],
+        *[entry(f"{name}_data_parallel", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+                dist["ranks"][0]["dp_step"]["launches"][name], pipeline[("check", 16, name)])
+          for name in ("strip_matmul", "strip_matmul_t")],
+        entry("strip_matmul_tensor_parallel", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+              dist["ranks"][0]["tp_step"]["launches"]["strip_matmul"], strip_bf16),
+        entry("strip_matmul_t_tensor_parallel", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+              dist["ranks"][0]["tp_step"]["launches"]["strip_matmul_t"], strip_t_bf16),
+        *[entry(f"{name}_hybrid_banded_diagonal", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+                dist["ranks"][0]["hybrid2"]["launches"][name], dist["hybrid_checks"][name])
+          for name in ("strip_matmul", "strip_matmul_t")],
     ]})
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl"), "w") as f:

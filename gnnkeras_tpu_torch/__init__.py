@@ -49,6 +49,14 @@ _EXPORTS = {
     "Predictor": "gnnkeras_tpu_torch.serving",
     "export_forward": "gnnkeras_tpu_torch.serving",
     "load_exported": "gnnkeras_tpu_torch.serving",
+    "DataParallelTrainer": "gnnkeras_tpu_torch.parallel.data_parallel",
+    "PartitionedGNN": "gnnkeras_tpu_torch.parallel.partition",
+    "partition_graph": "gnnkeras_tpu_torch.parallel.partition",
+    "PackedPartitionedGNN": "gnnkeras_tpu_torch.parallel.packed",
+    "PackedPartitionedLGNN": "gnnkeras_tpu_torch.parallel.packed",
+    "partition_packed": "gnnkeras_tpu_torch.parallel.packed",
+    "TensorParallelGNN": "gnnkeras_tpu_torch.parallel.tensor_parallel",
+    "make_hybrid_train_step": "gnnkeras_tpu_torch.parallel.hybrid",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gnnkeras_tpu_torch.graph.batch import GraphBatch
-from gnnkeras_tpu_torch.models.gnn import GNNnodeBased, aggregate_t, run_unfold_loops
+from gnnkeras_tpu_torch.models.gnn import GNNnodeBased, aggregate_t, group_predicate, run_unfold_loops
 from gnnkeras_tpu_torch.models.mlp import MLP
 from gnnkeras_tpu_torch.ops.segment import segment_sum_ordered
 
@@ -113,12 +113,16 @@ class CompositeGNNnodeBased(GNNnodeBased):
         return [batch.type_mask[:, t] & batch.node_mask for t in range(len(self.net_state))]
 
     def unfold(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None,
-               fixed_length: bool = False):
+               fixed_length: bool = False, group=None, state_net=None):
         """Run the unfolding.  Returns (k, state (N, d), the state nets' new
-        moving statistics keyed ``{t}.layers.{i}.…``)."""
+        moving statistics keyed ``{t}.layers.{i}.…``); ``group`` as in
+        ``GNNnodeBased.unfold``.  The per-type state nets have no stand-in:
+        ``state_net`` must be None."""
+        if state_net is not None:
+            raise ValueError("a composite GNN runs its own per-type state nets (state_net must be None)")
         self._check_batch(batch)
         if self._use_transposed(batch):
-            return self._unfold_transposed(batch, training, generator, fixed_length)
+            return self._unfold_transposed(batch, training, generator, fixed_length, group)
         n = batch.num_nodes
         component = self._aggregated_component(batch)
         state0 = self._initial_state(batch, generator) if self.state_vect_dim > 0 else batch.nodes
@@ -133,17 +137,17 @@ class CompositeGNNnodeBased(GNNnodeBased):
             for t, (net, d_t) in enumerate(zip(self.net_state, batch.dim_node_label)):
                 inp = torch.cat([batch.nodes[:, :d_t], state, aggregated, component], dim=1)
                 out_t, bn_t = net.run(inp, feature_major=False, training=training, mask=masks[t],
-                                      generator=generator, bn_state=self._of_type(bn, t))
+                                      generator=generator, bn_state=self._of_type(bn, t), group=group)
                 new_state = new_state + torch.where(masks[t][:, None], out_t, 0.0)
                 new_bn.update({f"{t}.{key}": value for key, value in bn_t.items()})
             return new_state, new_bn
 
         peel = batch.agg_node_labels if self.state_vect_dim == 0 else None
         return run_unfold_loops(self, batch, state0, torch.ones_like(state0), self._bn_state(), transition,
-                                training, peel_agg=peel, fixed_length=fixed_length)
+                                training, peel_agg=peel, fixed_length=fixed_length, predicate=group_predicate(group))
 
     def _unfold_transposed(self, batch: GraphBatch, training: bool, generator: Optional[torch.Generator],
-                           fixed_length: bool = False):
+                           fixed_length: bool = False, group=None):
         """The unfolding on feature-major (d_pad, N) state: the per-type MLPs
         run feature-major, the shared aggregation through ``aggregate_t``
         (the strip kernel on a slot-packed batch)."""
@@ -170,14 +174,15 @@ class CompositeGNNnodeBased(GNNnodeBased):
             for t, (net, d_t) in enumerate(zip(self.net_state, batch.dim_node_label)):
                 inp = torch.cat([labels_t[:d_t], state_t[:sd], aggregated, component_t], dim=0)
                 out_t, bn_t = net.run(inp, feature_major=True, training=training, mask=masks[t],
-                                      generator=generator, bn_state=self._of_type(bn, t))
+                                      generator=generator, bn_state=self._of_type(bn, t), group=group)
                 new_state = new_state + torch.where(masks[t][None, :], out_t, 0.0)
                 new_bn.update({f"{t}.{key}": value for key, value in bn_t.items()})
             return F.pad(new_state, (0, 0, 0, sd_pad - sd)), new_bn
 
         peel = None if ds > 0 or batch.agg_node_labels is None else batch.agg_node_labels.T
         k, state_t, bn = run_unfold_loops(self, batch, state0, state_old0, self._bn_state(), transition, training,
-                                          peel_agg=peel, feature_axis=0, fixed_length=fixed_length)
+                                          peel_agg=peel, feature_axis=0, fixed_length=fixed_length,
+                                          predicate=group_predicate(group))
         return k, state_t[:sd].T, bn
 
     def fold_transition(self):
@@ -217,6 +222,7 @@ class CompositeGNNgraphBased(CompositeGNNnodeBased):
     name = "graph"
 
     def apply_output(self, state: torch.Tensor, batch: GraphBatch, *, training: bool = False,
-                     generator: Optional[torch.Generator] = None):
-        out_nodes, _, new_bn = self.node_level_output(state, batch, training=training, generator=generator)
+                     generator: Optional[torch.Generator] = None, group=None):
+        out_nodes, _, new_bn = self.node_level_output(state, batch, training=training, generator=generator,
+                                                      group=group)
         return batch.readout(out_nodes), batch.graph_mask, new_bn

@@ -85,6 +85,23 @@ def unconverged_flag(state, state_old, node_mask, threshold: float, feature_axis
     return torch.any(changed & node_mask)
 
 
+def group_predicate(group=None):
+    """``unconverged_flag``, its flag maximised over the process ``group``
+    when one is given (the JAX package's ``_mesh_predicate``): one rank
+    still moving keeps every rank iterating, so every rank runs the trip
+    count one device would run on the union batch."""
+    if group is None:
+        return unconverged_flag
+
+    def predicate(state, state_old, node_mask, threshold, feature_axis=1):
+        from gnnkeras_tpu_torch.parallel.collectives import pmax
+
+        local = unconverged_flag(state, state_old, node_mask, threshold, feature_axis)
+        return pmax(local.to(torch.int32).reshape(1), group)[0] > 0
+
+    return predicate
+
+
 def aggregate_t(state_t: torch.Tensor, batch: GraphBatch, sd: int) -> torch.Tensor:
     """Feature-major ``Adjᵀ·state`` through the strip operator when present,
     else the batch's block operator (banded decomposition, quantised BCSR or
@@ -269,12 +286,20 @@ class GNNnodeBased(GraphModel):
         return initial_state(batch.num_nodes, self.state_vect_dim, generator, batch.device)
 
     def unfold(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None,
-               fixed_length: bool = False):
+               fixed_length: bool = False, group=None, state_net=None):
         """Run the unfolding.  Returns (k, state (N, d), the state net's new
         moving statistics); see ``run_unfold_loops`` for ``k`` and
-        ``fixed_length``."""
+        ``fixed_length``.  With a process ``group`` (the JAX package's
+        ``axis_name``) BatchNorm's moments span the group's ranks and the
+        convergence flag is maximised over them (``group_predicate``), so a
+        batch split into whole graphs over the ranks unfolds as the merged
+        batch does on one device (``parallel/packed.py``).  ``state_net``
+        (default ``net_state``) runs the transition: anything with ``run``
+        and ``bn_state`` as ``MLP`` has them (a rank's shard of a
+        tensor-parallel state net, ``parallel/tensor_parallel.py``)."""
+        net = self.net_state if state_net is None else state_net
         if self._use_transposed(batch):
-            return self._unfold_transposed(batch, training, generator, fixed_length)
+            return self._unfold_transposed(batch, training, generator, fixed_length, group, net)
         aggregated_arcs = self._agg_arcs(batch)
         if self.state_vect_dim > 0:
             state0 = self._initial_state(batch, generator)
@@ -290,16 +315,18 @@ class GNNnodeBased(GraphModel):
             if aggregated is None:
                 aggregated = batch.aggregate(state)
             inp = torch.cat([state, *constants, aggregated, *tail], dim=1)
-            return self.net_state.run(inp, feature_major=False, training=training, mask=batch.node_mask,
-                                      generator=generator, bn_state=bn)
+            return net.run(inp, feature_major=False, training=training, mask=batch.node_mask, generator=generator,
+                           bn_state=bn, group=group)
 
-        return run_unfold_loops(self, batch, state0, torch.ones_like(state0), self.net_state.bn_state(),
-                                transition, training, peel_agg=peel, fixed_length=fixed_length)
+        return run_unfold_loops(self, batch, state0, torch.ones_like(state0), net.bn_state(),
+                                transition, training, peel_agg=peel, fixed_length=fixed_length,
+                                predicate=group_predicate(group))
 
     def _unfold_transposed(self, batch: GraphBatch, training: bool, generator: Optional[torch.Generator],
-                           fixed_length: bool = False):
+                           fixed_length: bool = False, group=None, net=None):
         """The unfolding on feature-major (d_pad, N) state: one transpose at
         entry and one at exit, none at the aggregation kernel."""
+        net = self.net_state if net is None else net
         n = batch.num_nodes
         ds = self.state_vect_dim
         sd = ds or batch.nodes.shape[1]
@@ -324,14 +351,15 @@ class GNNnodeBased(GraphModel):
             if aggregated is None:
                 aggregated = aggregate_t(state_t, batch, sd)
             inp = torch.cat([state_t[:sd], *constants, aggregated, *tail], dim=0)
-            new_state, new_bn = self.net_state.run(inp, feature_major=True, training=training,
-                                                   mask=batch.node_mask, generator=generator, bn_state=bn)
+            new_state, new_bn = net.run(inp, feature_major=True, training=training, mask=batch.node_mask,
+                                        generator=generator, bn_state=bn, group=group)
             if sd_pad != sd:
                 new_state = F.pad(new_state, (0, 0, 0, sd_pad - sd))
             return new_state, new_bn
 
-        k, state_t, bn = run_unfold_loops(self, batch, state0, state_old0, self.net_state.bn_state(), transition,
-                                          training, peel_agg=peel, feature_axis=0, fixed_length=fixed_length)
+        k, state_t, bn = run_unfold_loops(self, batch, state0, state_old0, net.bn_state(), transition,
+                                          training, peel_agg=peel, feature_axis=0, fixed_length=fixed_length,
+                                          predicate=group_predicate(group))
         return k, state_t[:sd].T, bn
 
     # -- fused whole-unfold route (ops/fused.py) --------------------------------
@@ -407,22 +435,22 @@ class GNNnodeBased(GraphModel):
         return state, batch.output_row_mask
 
     def node_level_output(self, state: torch.Tensor, batch: GraphBatch, *, training: bool = False,
-                          generator: Optional[torch.Generator] = None):
+                          generator: Optional[torch.Generator] = None, group=None):
         """(net_output over the readout rows, row mask, net_output's new
         moving statistics)."""
         x, row_mask = self.readout_input(state, batch)
         out, new_bn = self.net_output.run(x, feature_major=False, training=training, mask=row_mask,
-                                          generator=generator)
+                                          generator=generator, group=group)
         return out, row_mask, new_bn
 
     def apply_output(self, state: torch.Tensor, batch: GraphBatch, *, training: bool = False,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None, group=None):
         """Focus-specific output: (out, out_mask, net_output's new moving
         statistics)."""
-        return self.node_level_output(state, batch, training=training, generator=generator)
+        return self.node_level_output(state, batch, training=training, generator=generator, group=group)
 
     def forward(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None,
-                fixed_length: bool = False):
+                fixed_length: bool = False, group=None, state_net=None):
         """Full forward: (k, state, out, out_mask, new moving statistics).
         ``out`` is row-aligned with the focus entity and gated by
         ``out_mask``; the statistics are keyed as in the state dict
@@ -431,11 +459,14 @@ class GNNnodeBased(GraphModel):
         differentiates and returns the updated ones (the buffers are not
         written).  ``generator`` draws the dropout masks in training.
         ``fixed_length`` selects the exportable inference loop
-        (``run_unfold_loops``)."""
+        (``run_unfold_loops``); ``group`` spans BatchNorm's moments and the
+        convergence flag over a process group and ``state_net`` replaces
+        the state net (``unfold``)."""
         with torch.set_grad_enabled(training and torch.is_grad_enabled()):
             k, state, bn_state = self.unfold(batch, training=training, generator=generator,
-                                             fixed_length=fixed_length)
-            out, out_mask, bn_out = self.apply_output(state, batch, training=training, generator=generator)
+                                             fixed_length=fixed_length, group=group, state_net=state_net)
+            out, out_mask, bn_out = self.apply_output(state, batch, training=training, generator=generator,
+                                                      group=group)
         return k, state, out, out_mask, {**_prefixed("net_state", bn_state), **_prefixed("net_output", bn_out)}
 
     # -- config / io -----------------------------------------------------------
@@ -525,6 +556,7 @@ class GNNgraphBased(GNNnodeBased):
     name = "graph"
 
     def apply_output(self, state: torch.Tensor, batch: GraphBatch, *, training: bool = False,
-                     generator: Optional[torch.Generator] = None):
-        out_nodes, _, new_bn = self.node_level_output(state, batch, training=training, generator=generator)
+                     generator: Optional[torch.Generator] = None, group=None):
+        out_nodes, _, new_bn = self.node_level_output(state, batch, training=training, generator=generator,
+                                                      group=group)
         return batch.readout(out_nodes), batch.graph_mask, new_bn

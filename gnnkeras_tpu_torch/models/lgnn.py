@@ -125,12 +125,14 @@ class LGNN(GraphModel):
         return outs[-1]
 
     def forward(self, batch: GraphBatch, *, training: bool = False, generator: Optional[torch.Generator] = None,
-                fixed_length: bool = False):
+                fixed_length: bool = False, group=None):
         """Run every layer.  Returns (ks, states, outs, out_mask, new moving
         statistics): one k, state and output per layer (graph-level outputs
         for the graph focus), the output row mask of the last layer, and the
         statistics keyed as in the state dict (``gnns.{l}.net_state.…``).
-        ``fixed_length`` selects every layer's exportable inference loop."""
+        ``fixed_length`` selects every layer's exportable inference loop;
+        ``group`` spans every layer's BatchNorm moments and convergence flag
+        over a process group (``GNNnodeBased.unfold``)."""
         cur = batch
         ks, states, outs, new_state = [], [], [], {}
         out_mask = None
@@ -138,12 +140,13 @@ class LGNN(GraphModel):
             for idx, gnn in enumerate(self.gnns):
                 if idx == self.LAYERS - 1:
                     k, state, out, out_mask, stats = gnn.forward(cur, training=training, generator=generator,
-                                                                 fixed_length=fixed_length)
+                                                                 fixed_length=fixed_length, group=group)
                     outs.append(out)
                 else:
                     k, state, bn_state = gnn.unfold(cur, training=training, generator=generator,
-                                                    fixed_length=fixed_length)
-                    out, row_mask, bn_out = gnn.node_level_output(state, cur, training=training, generator=generator)
+                                                    fixed_length=fixed_length, group=group)
+                    out, row_mask, bn_out = gnn.node_level_output(state, cur, training=training, generator=generator,
+                                                                  group=group)
                     stats = {**_prefixed("net_state", bn_state), **_prefixed("net_output", bn_out)}
                     outs.append(cur.readout(out) if self._is_graph else out)
                     cur = self.update_graph(batch, state, out, row_mask)

@@ -55,6 +55,29 @@ def rank_device(device="cuda") -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
+def fold_in(seed: int, index: int) -> int:
+    """A seed for stream ``index`` derived from ``seed`` (the counterpart of
+    ``jax.random.fold_in``): ranks that share a model's seed draw their
+    own dropout masks and initial states from ``fold_in(seed, rank)``."""
+    g = torch.Generator().manual_seed(int(seed))
+    offset = int(torch.randint(0, 2**62, (1,), generator=g))
+    return (offset + 0x9E3779B97F4A7C15 * (int(index) + 1)) % 2**62
+
+
+def axis_group(mesh: Optional["Mesh"], axis: str):
+    """The process group of ``axis``: this rank's line of ``mesh`` along
+    ``axis``, or the world without a mesh."""
+    return dist.group.WORLD if mesh is None else mesh.group(axis)
+
+
+def rank_generator(model, rank: int) -> torch.Generator:
+    """Rank ``rank``'s generator on ``model``'s device: the model stream's
+    next seed folded with the rank, as the JAX package folds the device
+    index into a step's key.  Every rank draws the same seed, so the ranks'
+    streams stay in step."""
+    return model.device_generator(fold_in(model.next_seed(), rank))
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's view of a mesh of the world's ranks: the axes, their

@@ -26,14 +26,19 @@ choose) and a float BCSR over the exchanged rows.
 validation (a ``GraphShard`` scored by ``evaluate`` or a plain sequencer
 scored on one device with the synchronised weights), callbacks,
 checkpoints (rank 0 writes, a barrier follows, every rank restores) and
-resume.  Every rank takes the same decisions: the logs the callbacks see
+resume, with the hooks of ``collectives.rank0_fit_hooks``.  Every rank takes the same decisions: the logs the callbacks see
 are rank 0's, and after a restore or a callback's weight change every rank
 takes rank 0's weights.  The step goes through gloo in host memory, so the
 chunks run eagerly (no captured CUDA graph).
 
+``tp_shards > 1`` shards the state net's features over a ``model`` group
+beside the graph partition (``parallel/tensor_parallel.py``); such an engine
+trains only through the hybrid step (``parallel/hybrid.py``), which holds
+each rank's shard of the state net and its optimizer state.  BatchNorm's
+row moments then span the graph group.
+
 Not ported here: composite graphs (the composite models run on one device;
-their partitioned engine is ROADMAP queue 10b) and ``tp_shards > 1`` (queue
-10b).
+their partitioned engine is ROADMAP queue 10c).
 """
 
 from __future__ import annotations
@@ -276,7 +281,7 @@ def partition_graph(g: GraphObject, n_parts: int, pad_multiple: int = 8, halo: b
     cast (``_local_operators``).  ``reorder='rcm'`` relabels the nodes by
     ``locality_order`` first."""
     if isinstance(g, CompositeGraphObject):
-        raise NotImplementedError("composite graphs on the partitioned engine are not ported yet (ROADMAP queue 10b)")
+        raise NotImplementedError("composite graphs on the partitioned engine are not ported yet (ROADMAP queue 10c)")
     if reorder not in ("none", "rcm"):
         raise ValueError(f"unknown reorder {reorder!r} (none | rcm)")
     if agg_dtype is not None and not dense_blocks:
@@ -439,17 +444,74 @@ class PartitionedGNN:
     parameters must be equal on every rank (build it from one seed, or load
     one state dict)."""
 
-    def __init__(self, gnn, group=None, transport: str = "collective", tp_shards: int = 1):
+    def __init__(self, gnn, group=None, transport: str = "collective", tp_shards: int = 1, model_group=None):
+        """``tp_shards > 1`` shards the state net's features over
+        ``model_group`` (default: the world) beside the graph partition over
+        ``group`` (module docstring)."""
         if transport not in TRANSPORTS:
             raise ValueError(f"transport {transport!r} must be one of {TRANSPORTS}")
-        if tp_shards > 1:
-            raise NotImplementedError("tp_shards > 1 (tensor parallelism composed with the graph partition) is not "
-                                      "ported yet (ROADMAP queue 10b)")
         import torch.distributed as dist
 
         self.gnn = gnn
         self.group = dist.group.WORLD if group is None else group
         self.transport = transport
+        self.tp_state = self.tp_local = None
+        self.model_group = None
+        if tp_shards > 1:
+            from torch import nn
+
+            from gnnkeras_tpu_torch.parallel.tensor_parallel import TensorParallelMLP
+
+            if isinstance(gnn.net_state, nn.ModuleList):
+                raise NotImplementedError("tensor parallelism composes with homogeneous models")
+            self.model_group = dist.group.WORLD if model_group is None else model_group
+            self.tp_state = TensorParallelMLP(gnn.net_state, tp_shards, self.model_group)
+
+    # -- the model-sharded state net ----------------------------------------------
+    def shard_tp_variables(self, state_dict: Optional[dict] = None) -> list:
+        """The model's state dict (default: its own) → one dict a model
+        shard: ``net_state.*`` sharded, ``net_output.*`` replicated."""
+        from gnnkeras_tpu_torch.parallel.tensor_parallel import shard_model_variables
+
+        assert self.tp_state is not None, "tp_shards == 1: nothing to shard"
+        return shard_model_variables(self.tp_state, self.gnn.state_dict() if state_dict is None else state_dict)
+
+    def gather_tp_variables(self, shards: list) -> dict:
+        """The inverse of ``shard_tp_variables``."""
+        from gnnkeras_tpu_torch.parallel.tensor_parallel import gather_model_variables
+
+        assert self.tp_state is not None, "tp_shards == 1: nothing to gather"
+        return gather_model_variables(self.tp_state, shards)
+
+    def tp_local_module(self):
+        """This rank's shard of the state net (made from the model's current
+        weights at the first call, then kept: the hybrid step trains it)."""
+        import torch.distributed as dist
+
+        if self.tp_local is None:
+            self.gnn.build()
+            if dist.get_world_size(self.model_group) != self.tp_state.n_shards:
+                raise ValueError(f"tp_shards={self.tp_state.n_shards} but the model group has "
+                                 f"{dist.get_world_size(self.model_group)} ranks")
+            shard = self.shard_tp_variables()[dist.get_rank(self.model_group)]
+            local = {k[10:]: v for k, v in shard.items() if k.startswith("net_state.")}
+            self.tp_local = self.tp_state.local_module(local).to(self.gnn.device)
+        return self.tp_local
+
+    def gather_tp_into_model(self) -> None:
+        """Write the trained state-net shards, gathered over the model
+        group, back into the model (a collective of the model group)."""
+        from gnnkeras_tpu_torch.parallel.tensor_parallel import gather_into
+
+        if self.tp_local is not None:
+            gather_into(self.tp_state, self.tp_local, self.gnn.net_state)
+
+    def _require_plain_params(self) -> None:
+        """forward / train_step / fit keep the state net whole on every
+        rank; a tensor-parallel engine trains through the hybrid step."""
+        if self.tp_state is not None:
+            raise ValueError("tp_shards > 1 requires the hybrid entry point (parallel.hybrid.make_hybrid_train_step "
+                             "with shard_tp_variables); fit/forward/train_step keep the parameters whole")
 
     # -- rank-local compute ------------------------------------------------------
     def _local_forward(self, shard: GraphShard, training: bool, generator: Optional[torch.Generator]):
@@ -514,6 +576,7 @@ class PartitionedGNN:
             ext = exchange(x)
             return segment_sum(ext[src_ext] * shard.arc_weight[:, None], shard.arc_dst_local, np_local)
 
+        net = gnn.net_state if self.tp_state is None else self.tp_local_module()
         ds = gnn.state_vect_dim
         if ds > 0:
             if generator is None:
@@ -536,11 +599,11 @@ class PartitionedGNN:
                 aggregated = aggregate(state)
             parts = [state, shard.nodes] if ds > 0 else [state]
             inp = torch.cat(parts + [aggregated, agg_nodes, shard.agg_arc_labels], dim=1)
-            return gnn.net_state.run(inp, feature_major=False, training=training, mask=shard.node_mask,
-                                     generator=generator, bn_state=bn, group=group)
+            return net.run(inp, feature_major=False, training=training, mask=shard.node_mask, generator=generator,
+                           bn_state=bn, group=group)
 
         peel = shard.agg_node_labels if ds == 0 and gnn.max_iteration >= 1 else None
-        k, state, bn_state = run_unfold_loops(gnn, shard, state0, torch.ones_like(state0), gnn.net_state.bn_state(),
+        k, state, bn_state = run_unfold_loops(gnn, shard, state0, torch.ones_like(state0), net.bn_state(),
                                               transition, training, peel_agg=peel, predicate=predicate)
 
         valid = shard.arc_mask if shard.focus == "a" else shard.node_mask
@@ -591,6 +654,7 @@ class PartitionedGNN:
         from gnnkeras_tpu_torch.training.trainer import _load_bn_state, _optimizer
 
         self._require_collective("training")
+        self._require_plain_params()
         gnn = self.gnn
         if gnn.optimizer is None or gnn.loss is None:
             raise RuntimeError("call gnn.compile() before training the partitioned model")
@@ -609,6 +673,7 @@ class PartitionedGNN:
     def forward(self, shard: GraphShard, training: bool = False, generator: Optional[torch.Generator] = None):
         """(k, state (Np, d), out, new moving statistics) of this rank's part,
         without gradients; rows follow the partition layout."""
+        self._require_plain_params()
         self.gnn.build()
         if generator is None and self.gnn.state_vect_dim > 0:
             generator = self.gnn.next_rng()
@@ -646,28 +711,9 @@ class PartitionedGNN:
         return dist.get_rank(self.group)
 
     def _agree(self, logs: dict) -> dict:
-        """Rank 0's logs on every rank (float64 through a broadcast), so the
-        callbacks of every rank take the same decisions."""
-        import torch.distributed as dist
+        from gnnkeras_tpu_torch.parallel.collectives import agree_logs
 
-        keys = list(logs)
-        values = torch.tensor([float(logs[k]) for k in keys], dtype=torch.float64)
-        dist.broadcast(values, src=dist.get_global_rank(self.group, 0), group=self.group)
-        return dict(zip(keys, values.tolist()))
-
-    def _take_rank0_weights(self) -> None:
-        """Every rank's parameters and moving statistics set to rank 0's, in
-        place (one broadcast through host memory)."""
-        import torch.distributed as dist
-
-        tensors = [*self.gnn.parameters(), *self.gnn.buffers()]
-        flat = torch.cat([t.detach().reshape(-1).cpu() for t in tensors])
-        dist.broadcast(flat, src=dist.get_global_rank(self.group, 0), group=self.group)
-        offset = 0
-        with torch.no_grad():
-            for t in tensors:
-                t.copy_(flat[offset:offset + t.numel()].view_as(t))
-                offset += t.numel()
+        return agree_logs(logs, self.group)
 
     def fit(self, shard: GraphShard, epochs: int = 1, verbose: int = 1, seed: int = 0,
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1, resume: bool = False,
@@ -681,13 +727,13 @@ class PartitionedGNN:
         chunks of one epoch.  ``class_weight`` ({class: weight}) scales each
         row's sample weight by its true class's.  Returns a ``History``;
         rank 0 of the group prints with ``verbose``."""
-        import torch.distributed as dist
-
+        from gnnkeras_tpu_torch.parallel.collectives import rank0_fit_hooks
         from gnnkeras_tpu_torch.training.fit_loop import run_fit_loop
         from gnnkeras_tpu_torch.training.trainer import _class_weight_vector
         from gnnkeras_tpu_torch.training.trainer import evaluate as seq_evaluate
 
         self._require_collective("fit")
+        self._require_plain_params()
         gnn = self.gnn
         if gnn.optimizer is None:
             raise RuntimeError("call compile() before fit()")
@@ -710,8 +756,6 @@ class PartitionedGNN:
 
         return run_fit_loop(
             gnn, epochs=epochs, run_chunk=run_chunk, chunk_size=steps_per_launch, validate=validate,
-            callbacks=callbacks, verbose=verbose if self._rank() == 0 else 0, checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every, resume=resume, validation_freq=validation_freq,
-            on_resume=self._take_rank0_weights, on_weights_mutated=self._take_rank0_weights,
-            writer=self._rank() == 0, barrier=lambda: dist.barrier(group=self.group),
+            callbacks=callbacks, checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, resume=resume,
+            validation_freq=validation_freq, **rank0_fit_hooks(gnn, self.group, verbose),
         )

@@ -37,7 +37,9 @@ def test_port_imports_no_jax():
     # the data pipeline and the fit surface are among them
     assert names >= {f"gnnkeras_tpu_torch.{m}" for m in (
         "data.sequencers", "data.transductive", "data.prefetch", "data.mutag", "training.fit_loop",
-        "training.checkpoint", "training.calibrate", "training.serial", "training.callbacks")}
+        "training.checkpoint", "training.calibrate", "training.serial", "training.callbacks",
+        "parallel.data_parallel", "parallel.packed", "parallel.tensor_parallel", "parallel.hybrid",
+        "parallel.multihost", "tools.multihost_sim")}
     assert bad == [], f"the port pulled in {bad}"
 
 
@@ -97,7 +99,10 @@ def test_serving_entry_points_raise_without_card(no_card, tmp_path):
 _RANK_MODULES = ("gnnkeras_tpu_torch.parallel.mesh", "gnnkeras_tpu_torch.parallel.collectives",
                  "gnnkeras_tpu_torch.parallel.partition", "gnnkeras_tpu_torch.ops.ring",
                  "gnnkeras_tpu_torch.tools.partitioned_large_graph", "gnnkeras_tpu_torch.tools.bench_strip_compact",
-                 "gnnkeras_tpu_torch.tools.bench_strip64")
+                 "gnnkeras_tpu_torch.tools.bench_strip64", "gnnkeras_tpu_torch.parallel.data_parallel",
+                 "gnnkeras_tpu_torch.parallel.packed", "gnnkeras_tpu_torch.parallel.tensor_parallel",
+                 "gnnkeras_tpu_torch.parallel.hybrid", "gnnkeras_tpu_torch.parallel.multihost",
+                 "gnnkeras_tpu_torch.tools.multihost_sim")
 
 
 def _modules_of_a_rank(rank: int, world: int) -> list:
@@ -112,7 +117,8 @@ def _modules_of_a_rank(rank: int, world: int) -> list:
 def test_spawned_ranks_import_no_jax():
     """The ranks ``parallel.launch.spawn`` starts import only what their
     function's module imports (this module imports no JAX): the partitioned
-    engine, the ring and the new tools pull in none."""
+    engine, the ring, the data-parallel, packed, tensor-parallel, hybrid and
+    multi-host modules and the tools pull in none."""
     from gnnkeras_tpu_torch.parallel.launch import spawn
 
     assert spawn(_modules_of_a_rank, 2) == [[], []]
@@ -150,3 +156,20 @@ def test_pipeline_entry_points_raise_without_card(no_card):
     with pytest.raises(RuntimeError, match="cuda"):
         PrefetchSequencer(seq)
     assert seq[0].nodes.device.type == "cpu"
+
+
+def test_distributed_entry_points_raise_without_card(no_card):
+    """The packed partition and the multi-host simulation default to the
+    card and refuse to carry on on the CPU without one."""
+    from gnnkeras_tpu_torch.data.synthetic import random_molecules
+    from gnnkeras_tpu_torch.graph.graph import GraphObject
+    from gnnkeras_tpu_torch.parallel.packed import partition_packed
+    from gnnkeras_tpu_torch.tools.multihost_sim import build_problem
+
+    merged = GraphObject.merge(random_molecules(n_graphs=4), "g", "average")
+    with pytest.raises(RuntimeError, match="cuda"):
+        partition_packed(merged, 2, strip_dtype="float32")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_problem(2, 2)
+    batches, meta = partition_packed(merged, 2, strip_dtype="float32", device="cpu")
+    assert [b.nodes.device.type for b in batches] == ["cpu", "cpu"] and len(meta.groups) == 2

@@ -426,10 +426,18 @@ def test_ring_transport_refuses_to_train(port_results):
 
 
 def test_engine_refuses_what_is_not_ported():
-    from gnnkeras_tpu_torch.parallel.partition import PartitionedGNN
+    from gnnkeras_tpu_torch.data.synthetic import composite_of, large_banded_graph, large_graph_gnn
+    from gnnkeras_tpu_torch.parallel.partition import PartitionedGNN, partition_graph
 
-    with pytest.raises(NotImplementedError, match="queue 10b"):
-        PartitionedGNN(object(), tp_shards=2)
+    # composite graphs on the partitioned engine are queue 10c
+    with pytest.raises(NotImplementedError, match="queue 10c"):
+        partition_graph(composite_of(large_banded_graph(256, band=8)), 2)
+    # a tensor-parallel engine (tp_shards > 1, ported) trains and infers only
+    # through the hybrid step, as the JAX package's
+    engine = PartitionedGNN(large_graph_gnn("cpu"), tp_shards=2)
+    for call in (engine.forward, engine.train_step, engine.fit):
+        with pytest.raises(ValueError, match="hybrid"):
+            call(None)
     with pytest.raises(ValueError, match="transport"):
         PartitionedGNN(object(), transport="nccl")
     # fit's validation, callbacks, checkpoints and resume are ported
