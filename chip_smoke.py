@@ -196,7 +196,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    gathered); then
    ``make_multihost_mesh(2, 2)`` with each rank's environment set as 2
    hosts × 2, whose step equals the first hybrid step's bit for bit; the
-   partition's ``comm_volume``.
+   partition's ``comm_volume``;
+22. expert-parallel, pipelined and composite-partitioned training on 4 ranks
+   sharing the card (spawned once, as phase 21's), each against the single
+   card from the same weights and draws (the ranks and the single card seed
+   the same CUDA generators), after the strip kernel's checks at d 16 on the
+   typed bench operator and on a microbatch's: (a) ``ExpertParallelCompositeGNN``
+   of ``typed_cgnn(10)`` on the bench batch typed into 3 atom types (types
+   padded to 4: rank 3's expert is zero): the eval forward (states at phase
+   17's bound with a bf16-aggregation control that must fail it, outputs at
+   phase 4's), one Adam step with ``average_st_grads`` (the experts'
+   gradients gathered and unpadded; phase 17's step bounds), launches equal to
+   the single card's, and a 2-epoch ``fit`` over phase 19's molecules typed
+   the same way with validation and a checkpoint; (b) ``PipelineLGNN`` of
+   ``pipeline_lgnn(4)``, one layer a rank: M = 1 on the bench batch against
+   the single card's ``parallel`` step (the LGNN stack's bounds, with its
+   control), the stages' launches summing to the single card's; M = 4 (250
+   of phase 19's molecules a microbatch, one padded shape, no BatchNorm)
+   against an Adam step on the mean of the four gradients; a 2-epoch ``fit``;
+   (c) ``typed_cgnn(0)`` on the typed bench batch split into 4 parts by
+   ``partition_graph``: forward and Adam step through the collective transport
+   (no kernel: the edge path), the forward through the ring (row 9; training
+   through it refuses), and forward and step through ``dense_blocks=True,
+   agg_dtype='int8'`` on the typed graph without parallel arcs (banded
+   diagonals in bf16, rows 1/1b; the reference holds the same bf16 weights
+   inside a part), and the band-384 graph at 131,072 nodes as a 1-type
+   composite graph (quantised int8 blocks: row 8), each against the single
+   card on the whole graph; the ring, the diagonal and row 8 checked on every
+   rank's own operator; (d) ``tools/bench_packed.py`` on the packed bench
+   batch.  Printed: every leg's forward and step ms a rank (host clock, after
+   a barrier) beside the single card's.
 
 Then the phase times, one JSON line listing the kernels, the card line
 again, and as the last line ``{"ok": true, "device": {...}}``.  The full log also goes to
@@ -3333,6 +3362,500 @@ def distributed_section(card, bench, b_bench, b_bench_cpu, g_large, b_large):
           "comm_volume": dataclasses.asdict(cv), "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
           "ranks_s": out["ranks_s"], "rank_leg_s": {leg: [r["leg_s"][leg] for r in ranks] for leg in ranks[0]["leg_s"]},
           "card": card})
+    out["packed_parts"] = parts
+    return out
+
+
+# -- phase 22: expert-parallel, pipelined and composite-partitioned training -----------
+
+XP_RANKS = 4  # phase 22's ranks, all on the one card
+
+
+def host_ms(fn, reps=5):
+    """Median host ms of ``fn`` on this process alone (synchronised with the
+    card around each call)."""
+    import torch
+
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ts))
+
+
+def single_type_cgnn(device, seed=0):
+    """Phase 14's node model as a composite GNN of one node type (dim_state
+    0): BatchNorm → Dense(34→8, selu) over ``[label | state | Σstate |
+    label sums | Σarcs]``, BatchNorm → Dense(8→2, softmax), max_iteration
+    5, threshold 0."""
+    from gnnkeras_tpu_torch.models.composite import CompositeGNNnodeBased
+    from gnnkeras_tpu_torch.models.mlp import MLP
+
+    net = MLP((8 + 2 * 8 + 8 + 2,), [8], "selu", kernel_initializer="lecun_normal", bias_initializer="lecun_normal")
+    out = MLP((8,), [2], "softmax", kernel_initializer="glorot_normal", bias_initializer="glorot_normal")
+    return CompositeGNNnodeBased([net], out, 0, 5, 0.0).build(seed=seed, device=device)
+
+
+def local_weights_bf16(batch, n_nodes, parts):
+    """``batch`` (a plain edge-list batch of a graph of ``n_nodes`` nodes)
+    with the weights of the arcs inside one of ``parts`` node ranges rounded
+    to bf16: the weights the partitioned engine's bf16 local operators hold
+    (its halo blocks stay f32, its label sums are the host's f32 ones)."""
+    import torch
+
+    chunk = -(-n_nodes // parts)
+    src, dst = batch.arc_src.long(), batch.arc_dst.long()
+    local = torch.clamp(src // chunk, max=parts - 1) == torch.clamp(dst // chunk, max=parts - 1)
+    w = batch.arcnode_weight
+    return batch.replace(arcnode_weight=torch.where(local, w.to(torch.bfloat16).to(w.dtype), w))
+
+
+def ep_step_grads(ep):
+    """An expert-parallel step's gradients keyed as the wrapped model's
+    parameters: the experts' gathered from every rank and their padding
+    removed, the head's as the step left them (summed over the group).  A
+    collective."""
+    import torch
+    import torch.distributed as tdist
+    from gnnkeras_tpu_torch.parallel.expert import unstack_expert_params
+
+    mine = [{n: p.grad.cpu() for n, p in e.named_parameters()} for e in ep.experts]
+    everyone = [None] * ep.n_devices
+    tdist.all_gather_object(everyone, mine, group=ep.group)
+    flat = [sd for rank_sds in everyone for sd in rank_sds]
+    per_type = unstack_expert_params(ep.cgnn.net_state, {k: torch.stack([sd[k] for sd in flat]) for k in flat[0]},
+                                     ep._label_widths)
+    grads = {f"net_state.{t}.{k}": v.numpy() for t, sd in enumerate(per_type) for k, v in sd.items()}
+    grads.update({f"net_output.{n}": p.grad.cpu().numpy() for n, p in ep.cgnn.net_output.named_parameters()})
+    return grads
+
+
+def pipeline_step_grads(pp):
+    """A pipelined step's gradients of every layer, gathered from the
+    stages, keyed as the LGNN's parameters.  A collective."""
+    import torch.distributed as tdist
+
+    mine = {f"gnns.{pp.stage}.{n}": p.grad.cpu().numpy() for n, p in pp.lgnn.gnns[pp.stage].named_parameters()}
+    everyone = [None] * pp.n_stages
+    tdist.all_gather_object(everyone, mine, group=pp.group)
+    return {k: v for d in everyone for k, v in d.items()}
+
+
+def _xp_rank(rank, world, inp, ck):
+    """Phase 22 on one rank (a spawned process on the card): a-d of
+    ``expert_pipeline_section``, each with its launches counted from 0,
+    then the kernels on this rank's own operators.  Returns NumPy results
+    for the parent to compare."""
+    import torch
+    from gnnkeras_tpu_torch import kernels
+    from gnnkeras_tpu_torch.data import CompositeMultiGraphSequencer
+    from gnnkeras_tpu_torch.data.synthetic import pipeline_lgnn, typed_cgnn
+    from gnnkeras_tpu_torch.ops import ring as R
+    from gnnkeras_tpu_torch.parallel.expert import ExpertParallelCompositeGNN
+    from gnnkeras_tpu_torch.parallel.mesh import rank_device
+    from gnnkeras_tpu_torch.parallel.partition import PartitionedGNN
+    from gnnkeras_tpu_torch.parallel.pipeline import PipelineLGNN
+    from gnnkeras_tpu_torch.tools import bench_packed
+
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    res = {"rank": rank, "leg_s": {}}
+    t_leg = time.perf_counter()
+
+    def leg_done(name):
+        nonlocal t_leg
+        res["leg_s"][name] = time.perf_counter() - t_leg
+        t_leg = time.perf_counter()
+
+    # -- a. expert parallelism: typed_cgnn(10) on the typed bench batch ----------------
+    typed = inp["typed"].to(dev)
+    ep = ExpertParallelCompositeGNN(compiled(typed_cgnn(10, dev), average_st_grads=True))
+    kernels.reset_launches()
+    with strip_widths() as widths:
+        k, state, out, _ = ep.forward(typed, generator=gen(11))
+        torch.cuda.synchronize()
+    res["ep_fwd"] = {"k": float(k), "state": state.cpu().numpy(), "out": out.cpu().numpy(), "launches": _launched(),
+                     "widths": widths.tally, "padded": [t >= ep.n_types for t in ep.local_types]}
+    with bf16_aggregation():
+        res["ep_fwd"]["control_state"] = ep.forward(typed, generator=gen(11))[1].cpu().numpy()
+    kernels.reset_launches()
+    with strip_widths() as widths:
+        logs = ep.train_step(typed, gen(12))
+        torch.cuda.synchronize()
+    launches = _launched()
+    grads = ep_step_grads(ep)
+    ep.sync_to_model()
+    res["ep_step"] = {**step_arrays(ep.cgnn, logs["loss"], grads), "k": float(logs["k"]), "launches": launches,
+                      "widths": widths.tally}
+    res["ep_fwd"]["forward_ms"], _ = _timed(lambda: ep.forward(typed, generator=gen(11)))
+    res["ep_step"]["train_step_ms"], _ = _timed(lambda: ep.train_step(typed, gen(12)), reps=3)
+    del typed
+    train_g, val_g = inp["ep_graphs"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # parallel arcs: the bf16 latch
+        seq = CompositeMultiGraphSequencer(train_g, "g", "composite_average", batch_size=1000, slot_pack=128,
+                                           strip_dtype="int8", device=dev)
+        val = CompositeMultiGraphSequencer(val_g, "g", "composite_average", batch_size=1000, slot_pack=128,
+                                           strip_dtype="int8", shuffle=False, device=dev)
+    model = compiled(typed_cgnn(10, dev), average_st_grads=True)
+    fitted = ExpertParallelCompositeGNN(model)
+    np.random.seed(0)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    history = fitted.fit(seq, epochs=2, verbose=0, validation_data=val, checkpoint_dir=os.path.join(ck, "expert"))
+    torch.cuda.synchronize()
+    res["ep_fit"] = {"history": history.history, "s": time.perf_counter() - t, "launches": _launched(),
+                     "engine_out": fitted.forward(val[0], generator=gen(5))[2].cpu().numpy(),
+                     "model_out": model.forward(val[0], generator=gen(5))[2].cpu().numpy()}
+    del seq, val, ep, fitted
+    leg_done("expert")
+
+    # -- b. the pipelined LGNN: M = 1 on the bench batch, M = 4 microbatches, a fit ---------
+    bench = inp["bench"].to(dev)
+    lgnn = compiled(pipeline_lgnn(dev), training_mode="parallel")
+    pp = PipelineLGNN(lgnn)
+    kernels.reset_launches()
+    with strip_widths() as widths:
+        logs = pp.train_step([bench], gen(13))
+        torch.cuda.synchronize()
+    launches = _launched()
+    grads = pipeline_step_grads(pp)
+    pp.sync_to_model()
+    res["pp_step"] = {**step_arrays(lgnn, logs["loss"], grads), "k": float(logs["k"]), "launches": launches,
+                      "widths": widths.tally}
+    res["pp_step"]["train_step_ms"], _ = _timed(lambda: pp.train_step([bench], gen(13)), reps=3)
+    bad = PipelineLGNN(compiled(pipeline_lgnn(dev), training_mode="parallel"))
+    with bf16_aggregation():
+        bad.train_step([bench], gen(13))
+    res["pp_step"]["control_grads"] = pipeline_step_grads(bad)
+    del bench, pp, bad
+    micro = [b.to(dev) for b in inp["micro"]]
+    lgnn4 = compiled(pipeline_lgnn(dev, bn=False), training_mode="parallel")
+    pp4 = PipelineLGNN(lgnn4)
+    kernels.reset_launches()
+    with strip_widths() as widths:
+        logs = pp4.train_step(micro, gen(14))
+        torch.cuda.synchronize()
+    launches = _launched()
+    grads = pipeline_step_grads(pp4)
+    pp4.sync_to_model()
+    res["pp_m4"] = {**step_arrays(lgnn4, logs["loss"], grads), "launches": launches, "widths": widths.tally}
+    res["pp_m4"]["train_step_ms"], _ = _timed(lambda: pp4.train_step(micro, gen(14)), reps=3)
+    fit_model = compiled(pipeline_lgnn(dev, bn=False), training_mode="parallel")
+    kernels.reset_launches()
+    t = time.perf_counter()
+    history = PipelineLGNN(fit_model).fit([micro], epochs=2, verbose=0, validation_data=_Repeat(micro[0], 1),
+                                          checkpoint_dir=os.path.join(ck, "pipeline"))
+    torch.cuda.synchronize()
+    res["pp_fit"] = {"history": history.history, "s": time.perf_counter() - t, "launches": _launched(),
+                     "params": {n: p.detach().cpu().numpy() for n, p in fit_model.named_parameters()}}
+    del micro, pp4
+    leg_done("pipeline")
+
+    # -- c. composite graphs on the partitioned engine -------------------------------------
+    legs = {"typed": (lambda: typed_cgnn(0, dev), "categorical_crossentropy", ("collective", "pallas_ring")),
+            "typed_int8": (lambda: typed_cgnn(0, dev), "categorical_crossentropy", ("collective",)),
+            "band384_int8": (lambda: single_type_cgnn(dev), "mse", ("collective",))}
+    res["partitioned"] = {}
+    for key, (make, loss, transports) in legs.items():
+        shard = inp["parts"][key].to(dev)
+        size = int(shard.node_mask.sum())
+        model = compiled(make(), loss)
+        leg = {}
+        for transport in transports:
+            engine = PartitionedGNN(model, transport=transport)
+            kernels.reset_launches()
+            with strip_widths() as widths:
+                k, state, out, _ = engine.forward(shard)
+                torch.cuda.synchronize()
+            leg[transport] = {"k": float(k), "state": state[:size].cpu().numpy(), "out": out.cpu().numpy(),
+                              "launches": _launched(), "widths": widths.tally}
+            leg[transport]["forward_ms"], _ = _timed(lambda: engine.forward(shard))
+        if "pallas_ring" in transports:
+            try:
+                PartitionedGNN(model, transport="pallas_ring").train_step(shard)
+                leg["ring_train"] = "trained"
+            except NotImplementedError as err:
+                leg["ring_train"] = str(err)
+        engine = PartitionedGNN(model)
+        kernels.reset_launches()
+        with strip_widths() as widths:
+            logs = engine.train_step(shard)
+            torch.cuda.synchronize()
+        leg["step"] = {**step_arrays(model, logs["loss"]), "k": float(logs["k"]), "launches": _launched(),
+                       "widths": widths.tally}
+        leg["step"]["train_step_ms"], _ = _timed(lambda: engine.train_step(shard), reps=3)
+        res["partitioned"][key] = leg
+    leg_done("composite_partitioned")
+
+    # -- d. tools/bench_packed.py: the packed flagship forward against the plain engine -----
+    res["bench_packed"] = bench_packed.run_rank(rank, world, inp["bench_packed"][0],
+                                                inp["bench_packed"][1] if rank == 0 else None,
+                                                inp["bench_packed"][2], repeats=5, device="cuda")
+    leg_done("bench_packed")
+
+    # -- the kernels on this rank's own operators (timed on rank 0) -------------------------
+    timed = rank == 0
+    x = torch.randn((int(inp["parts"]["typed"].publish_local.shape[0]), 14), generator=gen(100 + rank), device=dev)
+    kernels.reset_launches()
+    got = R.ring_all_gather(x)
+    assert kernels.LAUNCHES["ring_all_gather"] == 2  # the push and the copy-out
+    want = R._ring_all_gather_plain(x)
+    assert torch.equal(got, want)  # a copy: bit for bit
+    res["ring_check"] = {"rows": int(x.shape[0]), "d": 14, "max_abs_diff": float((got - want).abs().max()),
+                         **_ring_times(x), "bytes": world * (1 + world) * x.numel() * x.element_size()}
+    local = inp["parts"]["typed_int8"].local_op
+    diag = local.diags[list(local.offsets).index(0)].to(dev)
+    res["banded_checks"] = {name: check_strip(diag, f"typed_int8_part_{rank}_diagonal_0", timed=timed, name=name,
+                                              d=16) for name in ("strip_matmul", "strip_matmul_t")}
+    qm = inp["parts"]["band384_int8"].local_op.to(dev)
+    res["qbcsr_checks"] = {name: check_qbcsr(qm, f"band384_part_{rank}", timed=timed, name=name, d=8)
+                           for name in ("qbcsr_matmul", "qbcsr_matmul_t")}
+    leg_done("kernel_checks")
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return res
+
+
+def expert_pipeline_section(card, bench, b_bench, b_bench_cpu, packed_parts):
+    """Phase 22 (module docstring): the inputs, the references on the single
+    card, the 4 ranks (``_xp_rank``) and every check against them.
+    Returns what the kernels line reads."""
+    import torch
+    from gnnkeras_tpu_torch import from_graph_object, kernels
+    from gnnkeras_tpu_torch.data import MultiGraphSequencer, dataset_splits
+    from gnnkeras_tpu_torch.data.synthetic import (composite_of, large_banded_graph, pipeline_lgnn,
+                                                   random_molecules, typed_cgnn)
+    from gnnkeras_tpu_torch.ops.banded import BandedOperator
+    from gnnkeras_tpu_torch.ops.bcsr import QuantBcsr
+    from gnnkeras_tpu_torch.parallel.launch import spawn
+    from gnnkeras_tpu_torch.parallel.partition import partition_graph
+    from gnnkeras_tpu_torch.training.trainer import _objective, _optimizer, train_step
+
+    out, t0 = {}, time.perf_counter()
+    cuda_gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    typed = composite_of(bench, 3, "composite_average")
+    typed_u = composite_of(without_parallel_arcs(bench), 3, "composite_average")
+    band = composite_of(large_banded_graph(131_072, band=384), 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # parallel arcs, per-type weights: bf16 storage, as in JAX
+        b_typed_cpu = from_graph_object(typed, slot_pack=128, strip_dtype="int8", device="cpu")
+        parts = {"typed": partition_graph(typed, XP_RANKS),
+                 "typed_int8": partition_graph(typed_u, XP_RANKS, dense_blocks=True, agg_dtype="int8"),
+                 "band384_int8": partition_graph(band, XP_RANKS, dense_blocks=True, agg_dtype="int8")}
+    b_typed = b_typed_cpu.to("cuda")
+    assert parts["typed"].publish_local is not None  # the halo engages: the ring moves only the boundary rows
+    # 'composite_average' weights differ by source type: the banded diagonals store them in bf16 (rows 1/1b);
+    # the band-384 graph's 7 tile offsets exceed the banded form: quantised BCSR, int8 mask and scale (row 8)
+    assert all(isinstance(op, BandedOperator) for op in parts["typed_int8"].local_ops)
+    assert all(isinstance(op, QuantBcsr) and op.scale is not None for op in parts["band384_int8"].local_ops)
+    train_g, _, val_g = dataset_splits(random_molecules(4337, seed=0, min_nodes=5, max_nodes=56), seed=0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        seq4 = MultiGraphSequencer(train_g[:1000], "g", "average", batch_size=250, slot_pack=128,
+                                   strip_dtype="int8", shuffle=False, device="cpu")
+        micro_cpu = [seq4[i] for i in range(4)]
+    assert len(seq4) == 4 and len({(b.num_nodes, b.num_arcs, b.num_graphs) for b in micro_cpu}) == 1
+    micro = [b.to("cuda") for b in micro_cpu]
+    ep_graphs = ([composite_of(g, 3, "composite_average") for g in train_g],
+                 [composite_of(g, 3, "composite_average") for g in val_g])
+    emit({"phase": "expert_pipeline_inputs", "host_build_s": time.perf_counter() - t0,
+          "typed_nodes": int(typed.nodes.shape[0]), "typed_graphs": int(typed.num_graphs),
+          "typed_tiles": b_typed.num_nodes // 128, "typed_strip_storage": str(b_typed.strip.strip.dtype),
+          "typed_halo_rows": int(parts["typed"].publish_local.shape[1]),
+          "typed_int8_offsets": list(parts["typed_int8"].local_ops[0].offsets),
+          "typed_int8_diagonal_storage": str(parts["typed_int8"].local_ops[0].diags[0].strip.dtype),
+          "band384_nodes": int(band.nodes.shape[0]), "band384_blocks": [int(op.mask.shape[0])
+                                                                        for op in parts["band384_int8"].local_ops],
+          "microbatch": {"graphs": 250, "padded_nodes": micro[0].num_nodes}})
+
+    # rows 1/1b on the operators every rank holds whole: the typed batch (the
+    # experts' width 10, d_pad 16) and a microbatch (the pipeline's d_pad 16);
+    # the bench operator at d 16 is phase 2's check
+    out["checks"] = {(label, name): check_strip(op, label, timed=True, name=name, d=16)
+                     for label, op in (("typed_bench", b_typed.strip), ("pipeline_microbatch_0", micro[0].strip))
+                     for name in ("strip_matmul", "strip_matmul_t")}
+
+    # -- the single card's references ---------------------------------------------------
+    refs = {}
+    model = compiled(typed_cgnn(10, "cuda"), average_st_grads=True)
+    kernels.reset_launches()
+    k, state, o, mask, _ = model.forward(b_typed, generator=cuda_gen(11))
+    refs["ep_fwd"] = {"k": float(k), "state": state.cpu().numpy(), "out": o.cpu().numpy(), "launches": _launched(),
+                      "forward_ms": host_ms(lambda: model.forward(b_typed, generator=cuda_gen(11)))}
+    kernels.reset_launches()
+    logs, _ = train_step(model, b_typed, cuda_gen(12))
+    refs["ep_step"] = {**step_arrays(model, logs["loss_sum"] / logs["count"]), "launches": _launched()}
+    refs["ep_step"]["train_step_ms"] = host_ms(lambda: train_step(model, b_typed, cuda_gen(12)), reps=3)
+    graph_rows = np.flatnonzero(mask.cpu().numpy())
+    lgnn = compiled(pipeline_lgnn("cuda"), training_mode="parallel")
+    kernels.reset_launches()
+    logs, _ = train_step(lgnn, b_bench, cuda_gen(13))
+    refs["pp_step"] = {**step_arrays(lgnn, logs["loss_sum"] / logs["count"]), "launches": _launched()}
+    refs["pp_step"]["train_step_ms"] = host_ms(lambda: train_step(lgnn, b_bench, cuda_gen(13)), reps=3)
+    # M = 4: Adam on the mean of the microbatches' gradients, one generator drawing in their order
+    lgnn4 = compiled(pipeline_lgnn("cuda", bn=False), training_mode="parallel")
+    g4, grads, losses = cuda_gen(14), [], []
+    for b in micro:
+        lgnn4.zero_grad(set_to_none=True)
+        loss, _ = _objective(lgnn4, b, g4, training=True)
+        loss.backward()
+        grads.append([p.grad.clone() for p in lgnn4.parameters()])
+        losses.append(loss.detach())
+    for p, *gs in zip(lgnn4.parameters(), *grads):
+        p.grad = sum(gs) / len(gs)
+    _optimizer(lgnn4).step()
+    refs["pp_m4"] = step_arrays(lgnn4, sum(losses) / len(losses))
+    del model, lgnn, lgnn4, grads
+    # the composite partitioned legs: the single card on each whole graph (the int8 leg's reference
+    # holds the weights of its parts' bf16 diagonals: the arcs inside a part rounded to bf16)
+    for key, g, make, loss in (("typed", typed, lambda d: typed_cgnn(0, d), "categorical_crossentropy"),
+                               ("typed_int8", typed_u, lambda d: typed_cgnn(0, d), "categorical_crossentropy"),
+                               ("band384_int8", band, single_type_cgnn, "mse")):
+        b = from_graph_object(g, device="cuda", dense_blocks=key != "typed_int8")
+        if key == "typed_int8":
+            b = local_weights_bf16(b, int(g.nodes.shape[0]), XP_RANKS)
+        model = compiled(make("cuda"), loss)
+        k, state, o, mask, _ = model.forward(b)
+        n = int(g.nodes.shape[0])
+        refs[key] = {"k": float(k), "state": state[:n].cpu().numpy(), "out": o[mask].cpu().numpy(),
+                     "forward_ms": host_ms(lambda: model.forward(b))}
+        logs, _ = train_step(model, b, model.next_rng())
+        refs[key]["step"] = step_arrays(model, logs["loss_sum"] / logs["count"])
+        refs[key]["step"]["train_step_ms"] = host_ms(lambda: train_step(model, b, model.next_rng()), reps=3)
+        del b, model
+    torch.cuda.empty_cache()
+
+    inputs = [{"typed": b_typed_cpu, "bench": b_bench_cpu, "micro": micro_cpu, "ep_graphs": ep_graphs,
+               "parts": {key: pg.shard(r, "cpu") for key, pg in parts.items()},
+               "bench_packed": (packed_parts[r], b_bench_cpu if r == 0 else None, int(bench.arcs.shape[0]))}
+              for r in range(XP_RANKS)]
+    ck = tempfile.mkdtemp(dir=os.path.join(REPO, "gnnkeras_tpu_torch", "_build"))
+    t0 = time.perf_counter()
+    ranks = spawn(_xp_rank, XP_RANKS, [(inp, ck) for inp in inputs], threads=2, timeout_s=900)
+    out["ranks_s"] = time.perf_counter() - t0
+    out["ranks"] = ranks
+    phase4, deep = (1e-5, 1e-6), (1e-5, 1e-5)
+
+    def share(a, b, tol):
+        return float((np.abs(a - b) / (tol[1] + tol[0] * np.abs(b))).max())
+
+    # -- a. expert parallelism -------------------------------------------------------------
+    ref, real = refs["ep_fwd"], b_typed_cpu.node_mask.numpy()
+    ep_steps = []
+    for r in ranks:
+        got = r["ep_fwd"]
+        assert got["k"] == ref["k"] and got["launches"] == ref["launches"], (got["k"], got["launches"], ref)
+        assert got["padded"] == [r["rank"] == XP_RANKS - 1], got["padded"]  # 3 types on 4 ranks: rank 3's is padded
+        # 10 state features through 5 iterations, the experts' padded kernels summing in another order: phase 17's
+        # state bound; the graph outputs at phase 4's
+        np.testing.assert_allclose(got["state"][real], ref["state"][real], rtol=deep[0], atol=deep[1],
+                                   err_msg="expert state")
+        np.testing.assert_allclose(got["out"][graph_rows], ref["out"][graph_rows], rtol=phase4[0], atol=phase4[1],
+                                   err_msg="expert out")
+        assert r["ep_step"]["launches"] == refs["ep_step"]["launches"], (r["ep_step"]["launches"], refs["ep_step"])
+        ep_steps.append(check_step(f"expert step rank {r['rank']}", r["ep_step"], refs["ep_step"],
+                                   grad_atol_rel=1e-4))
+    control = min(share(r["ep_fwd"]["control_state"][real], ref["state"][real], deep) for r in ranks)
+    assert control > 1.0, control
+    fit = ranks[0]["ep_fit"]
+    for r in ranks:
+        assert r["ep_fit"]["history"] == fit["history"]
+        np.testing.assert_allclose(r["ep_fit"]["engine_out"], r["ep_fit"]["model_out"], rtol=phase4[0],
+                                   atol=phase4[1], err_msg="the experts written back")
+    assert len(fit["history"]["loss"]) == 2 and np.isfinite(fit["history"]["loss"]).all()
+    assert len(fit["history"]["val_loss"]) == 2 and np.isfinite(fit["history"]["val_loss"]).all()
+    emit({"phase": "expert_parallel", "ranks": XP_RANKS, "types": 3, "types_padded": XP_RANKS, "k": ref["k"],
+          "state_tolerance": deep, "state_tolerance_share": max(share(r["ep_fwd"]["state"][real], ref["state"][real],
+                                                                      deep) for r in ranks),
+          "control_state_tolerance_share": control,
+          "out_max_abs_diff": max(float(np.abs(r["ep_fwd"]["out"][graph_rows] - ref["out"][graph_rows]).max())
+                                  for r in ranks), "step": ep_steps[0],
+          "launches": {"forward": ranks[0]["ep_fwd"]["launches"], "train_step": ranks[0]["ep_step"]["launches"],
+                       "fit_2_epochs": fit["launches"]},
+          "widths": {"forward": {str(k): v for k, v in ranks[0]["ep_fwd"]["widths"].items()}},
+          "fit": fit["history"], "fit_s": [r["ep_fit"]["s"] for r in ranks],
+          "forward_ms": [r["ep_fwd"]["forward_ms"] for r in ranks], "forward_ms_single_card": ref["forward_ms"],
+          "train_step_ms": [r["ep_step"]["train_step_ms"] for r in ranks],
+          "train_step_ms_single_card": refs["ep_step"]["train_step_ms"], "card": card})
+
+    # -- b. the pipelined LGNN -------------------------------------------------------------
+    pp_steps, pp4_steps = [], []
+    for name in ("strip_matmul", "strip_matmul_t"):  # the stages' launches add up to the single card's step
+        total = sum(r["pp_step"]["launches"].get(name, 0) for r in ranks)
+        assert total == refs["pp_step"]["launches"][name], (name, total, refs["pp_step"]["launches"])
+        assert all(r["pp_step"]["launches"].get(name, 0) > 0 and r["pp_m4"]["launches"].get(name, 0) > 0
+                   for r in ranks), name
+    for r in ranks:
+        # the LGNN stack's bound (phase 18): gradients to 1e-3 of each leaf's largest |g|
+        pp_steps.append(check_step(f"pipeline M=1 rank {r['rank']}", r["pp_step"], refs["pp_step"],
+                                   grad_atol_rel=1e-3))
+        pp4_steps.append(check_step(f"pipeline M=4 rank {r['rank']}", r["pp_m4"], refs["pp_m4"], grad_atol_rel=1e-3))
+        assert set(r["pp_step"]["widths"]) <= {("strip_matmul", 16), ("strip_matmul_t", 16)}, r["pp_step"]["widths"]
+    pp_control = grad_tolerance_share(ranks[0]["pp_step"]["control_grads"], refs["pp_step"]["grads"], 1e-3)
+    assert pp_control > 1.0, pp_control
+    pfit = ranks[0]["pp_fit"]
+    assert len(pfit["history"]["loss"]) == 2 and np.isfinite(pfit["history"]["loss"]).all()
+    assert len(pfit["history"]["val_loss"]) == 2 and np.isfinite(pfit["history"]["val_loss"]).all()
+    for r in ranks:
+        assert r["pp_fit"]["history"] == pfit["history"]
+        for name, value in pfit["params"].items():  # every rank holds every trained layer
+            np.testing.assert_array_equal(r["pp_fit"]["params"][name], value, err_msg=name)
+    emit({"phase": "pipeline_parallel", "stages": XP_RANKS, "layers": 4, "dim_state": 10,
+          "m1": pp_steps[0], "m1_control_grad_share": pp_control, "m4": pp4_steps[0],
+          "launches": {"m1": [r["pp_step"]["launches"] for r in ranks], "m4": [r["pp_m4"]["launches"] for r in ranks],
+                       "m1_single_card": refs["pp_step"]["launches"]},
+          "fit": pfit["history"], "fit_s": [r["pp_fit"]["s"] for r in ranks],
+          "train_step_ms": {"m1": [r["pp_step"]["train_step_ms"] for r in ranks],
+                            "m1_single_card": refs["pp_step"]["train_step_ms"],
+                            "m4": [r["pp_m4"]["train_step_ms"] for r in ranks]}, "card": card})
+
+    # -- c. composite graphs on the partitioned engine ---------------------------------------
+    part_res = {}
+    for key, pg in parts.items():
+        ref = refs[key]
+        legs = [r["partitioned"][key] for r in ranks]
+        for transport in [t for t in ("collective", "pallas_ring") if t in legs[0]]:
+            assert all(leg[transport]["k"] == ref["k"] for leg in legs), ([leg[transport]["k"] for leg in legs], ref)
+            state = np.concatenate([leg[transport]["state"] for leg in legs])
+            o = legs[0][transport]["out"][:len(ref["out"])] if pg.focus == "g" else \
+                np.concatenate([leg[transport]["out"][:len(leg[transport]["state"])] for leg in legs])
+            np.testing.assert_allclose(state, ref["state"], rtol=deep[0], atol=deep[1], err_msg=f"{key} {transport}")
+            np.testing.assert_allclose(o, ref["out"], rtol=phase4[0], atol=phase4[1], err_msg=f"{key} {transport}")
+            part_res[(key, transport)] = {"state_max_abs_diff": float(np.abs(state - ref["state"]).max()),
+                                          "out_max_abs_diff": float(np.abs(o - ref["out"]).max()),
+                                          "launches": legs[0][transport]["launches"],
+                                          "forward_ms": [leg[transport]["forward_ms"] for leg in legs],
+                                          "forward_ms_single_card": ref["forward_ms"]}
+        steps = [check_step(f"{key} partitioned step rank {r}", leg["step"], ref["step"], grad_atol_rel=1e-4)
+                 for r, leg in enumerate(legs)]
+        part_res[(key, "step")] = {**steps[0], "launches": legs[0]["step"]["launches"],
+                                   "train_step_ms": [leg["step"]["train_step_ms"] for leg in legs],
+                                   "train_step_ms_single_card": ref["step"]["train_step_ms"]}
+    for r in ranks:
+        legs = r["partitioned"]
+        assert legs["typed"]["collective"]["launches"] == {} and legs["typed"]["step"]["launches"] == {}
+        assert set(legs["typed"]["pallas_ring"]["launches"]) == {"ring_all_gather"}, legs["typed"]["pallas_ring"]
+        assert "no backward" in legs["typed"]["ring_train"]
+        for name in ("strip_matmul", "strip_matmul_t"):
+            assert legs["typed_int8"]["step"]["launches"].get(name, 0) > 0, legs["typed_int8"]["step"]
+            assert set(legs["typed_int8"]["step"]["widths"]) <= {(n, 16) for n in ("strip_matmul", "strip_matmul_t")}
+        assert set(legs["band384_int8"]["step"]["launches"]) == {"qbcsr_matmul", "qbcsr_matmul_t"}, legs["band384_int8"]
+    emit({"phase": "composite_partitioned", "parts": XP_RANKS,
+          "legs": {f"{k}/{t}": v for (k, t), v in part_res.items()}, "card": card})
+
+    bp = ranks[0]["bench_packed"]
+    emit({"phase": "bench_packed", "ranks": XP_RANKS, "line": bp["line"], "plain_ms": bp["plain_ms"],
+          "packed_ms": bp["packed_ms"], "plain_edges_per_s": bp["plain_edges_per_s"],
+          "packed_edges_per_s": bp["packed_edges_per_s"], "ratio": bp["ratio"], "card": card})
+    ring = ranks[0]["ring_check"]
+    ring["bound_ms"], ring["bound_by"] = bound(ring["bytes"], 0)
+    emit({"phase": "expert_pipeline_ranks", "ranks_s": out["ranks_s"],
+          "rank_leg_s": {leg: [r["leg_s"][leg] for r in ranks] for leg in ranks[0]["leg_s"]},
+          "peak_memory_gb": [r["peak_memory_gb"] for r in ranks], "card": card})
     return out
 
 
@@ -3581,6 +4104,11 @@ def main():
     t_phase = time.perf_counter()
     dist = distributed_section(card, bench, b_bench, b_bench_cpu, large["graph"], large["batch"])
     times["distributed"] = time.perf_counter() - t_phase
+
+    # -- 22. expert-parallel, pipelined and composite-partitioned training -------------
+    t_phase = time.perf_counter()
+    xp = expert_pipeline_section(card, bench, b_bench, b_bench_cpu, dist.pop("packed_parts"))
+    times["expert_pipeline"] = time.perf_counter() - t_phase
     emit({"phase": "timing", "phase_s": times, "total_s": time.perf_counter() - t_start})
 
     # -- kernels, card, verdict ----------------------------------------------
@@ -3729,6 +4257,33 @@ def main():
         *[entry(f"{name}_hybrid_banded_diagonal", strip_src, "gnnkeras_tpu/ops/strip.py:278",
                 dist["ranks"][0]["hybrid2"]["launches"][name], dist["hybrid_checks"][name])
           for name in ("strip_matmul", "strip_matmul_t")],
+        # phase 22, launches per rank (rank 0 of 4): rows 1/1b in the expert-parallel step (the typed bench
+        # operator, which every rank holds whole, at the experts' d 16), in the pipelined steps (rank 0's
+        # layer: M = 1 on the bench operator, phase 2's check at the same d 16; M = 4 on a microbatch's own
+        # operator), on the composite partitioned int8 leg's banded diagonals, and row 8 on the band-384
+        # leg's quantised operators (each checked on rank 0's own local operator); row 9 on the typed
+        # partition's halo, at its shape
+        *[entry(f"{name}_expert_parallel", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+                xp["ranks"][0]["ep_step"]["launches"][name], xp["checks"][("typed_bench", name)])
+          for name in ("strip_matmul", "strip_matmul_t")],
+        entry("strip_matmul_pipeline", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+              xp["ranks"][0]["pp_step"]["launches"]["strip_matmul"], strip_bf16),
+        entry("strip_matmul_t_pipeline", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+              xp["ranks"][0]["pp_step"]["launches"]["strip_matmul_t"], strip_t_bf16),
+        *[entry(f"{name}_pipeline_m4", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+                xp["ranks"][0]["pp_m4"]["launches"][name], xp["checks"][("pipeline_microbatch_0", name)])
+          for name in ("strip_matmul", "strip_matmul_t")],
+        *[entry(f"{name}_composite_partitioned_banded", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+                xp["ranks"][0]["partitioned"]["typed_int8"]["step"]["launches"][name],
+                xp["ranks"][0]["banded_checks"][name])
+          for name in ("strip_matmul", "strip_matmul_t")],
+        *[entry(f"{name}_composite_partitioned", qbcsr_src, "gnnkeras_tpu/ops/bcsr.py:378",
+                xp["ranks"][0]["partitioned"]["band384_int8"]["step"]["launches"][name],
+                xp["ranks"][0]["qbcsr_checks"][name])
+          for name in ("qbcsr_matmul", "qbcsr_matmul_t")],
+        entry("ring_all_gather_composite_partitioned", "gnnkeras_tpu_torch/csrc/ring.cu", "gnnkeras_tpu/ops/ring.py:25",
+              xp["ranks"][0]["partitioned"]["typed"]["pallas_ring"]["launches"]["ring_all_gather"],
+              xp["ranks"][0]["ring_check"]),
     ]})
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl"), "w") as f:

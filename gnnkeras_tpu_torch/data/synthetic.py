@@ -31,6 +31,13 @@
   ``flagship_lgnn``: an LGNN of 5 layers of the flagship architecture
   (dim_state 0, so the state widens layer by layer: 14, 30, 46, 62, 78);
   ``typed_arc_cgnn``: the arc-focused composite GNN over the 3 types.
+- ``typed_cgnn`` and ``pipeline_lgnn``: the models of the distributed
+  paths, with the starter's settings (selu state nets, softmax output net,
+  max_iteration 5, threshold 0.01): the graph-focused composite GNN over
+  the 3 atom types that expert parallelism shards by type
+  (``parallel/expert.py``) and the partitioned engine runs at dim_state 0,
+  and the homogeneous graph-focused LGNN at dim_state 10 that pipeline
+  parallelism runs one layer a rank (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -257,3 +264,41 @@ def typed_arc_cgnn(device="cuda", seed: int = 0) -> CompositeGNNarcBased:
     width, comp = 14, sum(ATOM_TYPE_BOUNDS) + 3
     nets = [_state_net((d_t + 2 * width + comp,), [width]) for d_t in ATOM_TYPE_BOUNDS]
     return CompositeGNNarcBased(nets, _output_net((2 * width + 3,), [2]), 0, 5, 0.0).build(seed=seed, device=device)
+
+
+def typed_cgnn(dim_state: int = 10, device="cuda", seed: int = 0) -> CompositeGNNgraphBased:
+    """Graph-focused composite GNN over the 3 atom types of
+    ``composite_of(g, 3, "composite_average")``: per type a BatchNorm →
+    Dense(→ width, selu) state net, BatchNorm → Dense(width → 2, softmax)
+    output net, max_iteration 5, threshold 0.01.  At ``dim_state`` > 0 the
+    state nets' inputs are ``get_inout_dims``' for label widths (5, 10, 14)
+    and the width is ``dim_state``; at 0 the state is the 14-wide label and
+    the inputs are the model's own (``d_t + 2·14 + Σd + 3``, as
+    ``typed_arc_cgnn``)."""
+    if dim_state:
+        ins, ls = get_inout_dims("state", list(ATOM_TYPE_BOUNDS), 3, 2, "g", dim_state)
+        nets, width = [_state_net(shape, ls) for shape in ins], dim_state
+    else:
+        width, comp = 14, sum(ATOM_TYPE_BOUNDS) + 3
+        nets = [_state_net((d_t + 2 * width + comp,), [width]) for d_t in ATOM_TYPE_BOUNDS]
+    return CompositeGNNgraphBased(nets, _output_net((width,), [2]), dim_state, STARTER_MAX_ITER,
+                                  STARTER_THRESHOLD).build(seed=seed, device=device)
+
+
+def pipeline_lgnn(device="cuda", seed: int = 0, layers: int = 4, bn: bool = True) -> LGNN:
+    """A homogeneous graph-focused LGNN of ``layers`` layers at dim_state 10
+    (get_state and get_output): per layer a (BatchNorm →) Dense(→ 10, selu)
+    state net and a (BatchNorm →) Dense(→ 2, softmax) output net sized by
+    ``get_inout_dims``, max_iteration 5, threshold 0.01; ``bn=False`` drops
+    the BatchNorms."""
+    gnns = []
+    for i in range(layers):
+        kw = dict(layer=i, get_state=True, get_output=True)
+        ins, ls = get_inout_dims("state", 14, 3, 2, "g", STARTER_DIM_STATE, **kw)
+        ino, lo = get_inout_dims("output", 14, 3, 2, "g", STARTER_DIM_STATE, **kw)
+        net_state = MLP(ins[0], ls, "selu", kernel_initializer="lecun_normal", bias_initializer="lecun_normal",
+                        batch_normalization=bn)
+        net_output = MLP(ino[0], lo, "softmax", kernel_initializer="glorot_normal", bias_initializer="glorot_normal",
+                         batch_normalization=bn)
+        gnns.append(GNNgraphBased(net_state, net_output, STARTER_DIM_STATE, STARTER_MAX_ITER, STARTER_THRESHOLD))
+    return LGNN(gnns, True, True).build(seed=seed, device=device)

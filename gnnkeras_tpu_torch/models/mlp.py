@@ -179,6 +179,20 @@ def _dropout_keep(x: torch.Tensor, rate: float, generator: torch.Generator) -> t
     return (u < 1.0 - rate).to(x.dtype)
 
 
+def skip_dropout_draws(net: "MLP", rows: int, feature_major: bool, generator: torch.Generator) -> None:
+    """Draw, and drop, the keep masks a training ``run`` of ``net`` over
+    ``rows`` rows draws from ``generator`` (the same shapes in the same
+    order), so the stream ends where that run would leave it: a rank that
+    skips a net another rank runs stays in step with a single device."""
+    width = net.input_dim[0]
+    for layer in net.program:
+        if layer[0] == "dense":
+            width = layer[1]
+        elif layer[0] == "dropout" and layer[1] > 0.0:
+            shape = (width, rows) if feature_major else (rows, width)
+            torch.rand(shape, generator=generator, dtype=torch_floatx(), device=generator.device)
+
+
 def _dropout_apply(x: torch.Tensor, rate: float, alpha: bool, keep: torch.Tensor) -> torch.Tensor:
     """Dropout (inverted scaling) or AlphaDropout (Keras' affine
     correction) at a given keep mask."""

@@ -5,8 +5,10 @@ rank per process: ``mesh`` (groups, sub-groups by axis, each rank's device),
 for one large graph), ``data_parallel`` (one batch a rank, gradients
 averaged over the real batches), ``packed`` (a merged molecule batch split
 into whole graphs, no halo), ``tensor_parallel`` (the state net's features
-sharded), ``hybrid`` (data × graph (× model) steps) and ``multihost``
-(meshes whose rows are hosts, the communication-volume model).
+sharded), ``hybrid`` (data × graph (× model) steps), ``multihost``
+(meshes whose rows are hosts, the communication-volume model), ``expert``
+(a composite GNN's per-type state nets sharded over the ranks) and
+``pipeline`` (GPipe over an LGNN's layers, one a rank).
 
 The names below are the JAX package's ``parallel`` names that the port has,
 imported on first access.  ``stack_batches`` / ``shard_batches`` have no
@@ -35,6 +37,8 @@ _EXPORTS = {
     "initialize_multihost": "gnnkeras_tpu_torch.parallel.multihost",
     "make_multihost_mesh": "gnnkeras_tpu_torch.parallel.multihost",
     "comm_volume": "gnnkeras_tpu_torch.parallel.multihost",
+    "ExpertParallelCompositeGNN": "gnnkeras_tpu_torch.parallel.expert",
+    "PipelineLGNN": "gnnkeras_tpu_torch.parallel.pipeline",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -37,8 +37,16 @@ trains only through the hybrid step (``parallel/hybrid.py``), which holds
 each rank's shard of the state net and its optimizer state.  BatchNorm's
 row moments then span the graph group.
 
-Not ported here: composite graphs (the composite models run on one device;
-their partitioned engine is ROADMAP queue 10c).
+Composite graphs and models: each part carries its rows' node types
+(``type_mask``) and their per-type neighbour-label sums (``agg_component``),
+summed on the host in f64 and cast once, as the JAX package builds them
+(never on the device, where another summation order would move the last
+bit).  The transition runs
+one state net per type over the part's rows, its BatchNorm moments over
+that type's real rows of every rank, and sums the outputs gated by the type
+masks; the readouts read the state only.  Tensor parallelism does not
+compose with a composite model (expert parallelism, ``parallel/expert.py``,
+shards its per-type nets instead).
 """
 
 from __future__ import annotations
@@ -98,6 +106,8 @@ def permute_graph_nodes(g: GraphObject, perm: np.ndarray) -> GraphObject:
         g2.sample_weight = g.sample_weight[order]
     g2.graph_of_node = g.graph_of_node[perm]
     g2.nodegraph_weight = g.nodegraph_weight[perm]
+    if isinstance(g, CompositeGraphObject):
+        g2.type_mask = g.type_mask[perm]
     return g2
 
 
@@ -135,14 +145,17 @@ class GraphShard:
     halo_op: Optional[object]  # BcsrMatrix over the exchanged rows
     agg_arc_labels: torch.Tensor  # (Np, da)
     agg_node_labels: torch.Tensor  # (Np, dn)
+    type_mask: Optional[torch.Tensor]  # (Np, T) node types, composite graphs only
+    agg_component: Optional[torch.Tensor]  # (Np, Σd_t + da) per-type label sums, composite only
     focus: str
     rank: int
     n_parts: int
     nodes_per_part: int
     n_graphs: int
+    dim_node_label: Tuple[int, ...]
 
     def to(self, device) -> "GraphShard":
-        static = ("focus", "rank", "n_parts", "nodes_per_part", "n_graphs")
+        static = ("focus", "rank", "n_parts", "nodes_per_part", "n_graphs", "dim_node_label")
         return dataclasses.replace(self, **{f.name: _move(getattr(self, f.name), device)
                                             for f in dataclasses.fields(self) if f.name not in static})
 
@@ -177,6 +190,8 @@ class PartitionedGraph:
     halo_ops: Optional[List[object]]
     agg_arc_labels: np.ndarray
     agg_node_labels: np.ndarray
+    type_mask: Optional[np.ndarray]
+    agg_component: Optional[np.ndarray]
     focus: str
     dim_node_label: Tuple[int, ...]
     n_parts: int
@@ -194,14 +209,16 @@ class PartitionedGraph:
         part = lambda a: None if a is None else a[rank]
         kw = {name: part(getattr(self, name)) for name in _PART_FIELDS}
         kw.update(local_op=part(self.local_ops), halo_op=part(self.halo_ops), focus=self.focus, rank=rank,
-                  n_parts=self.n_parts, nodes_per_part=self.nodes_per_part, n_graphs=self.n_graphs)
+                  n_parts=self.n_parts, nodes_per_part=self.nodes_per_part, n_graphs=self.n_graphs,
+                  dim_node_label=self.dim_node_label)
         return GraphShard(**kw).to(device)
 
 
 # the per-part array fields, shared by PartitionedGraph and GraphShard
 _PART_FIELDS = ("nodes", "node_mask", "arc_src_global", "arc_dst_local", "arc_weight", "arc_label", "arc_mask",
                 "set_mask", "output_mask", "targets", "target_mask", "sample_weight", "publish_local", "publish_mask",
-                "arc_src_halo", "graph_of_node", "nodegraph_weight", "agg_arc_labels", "agg_node_labels")
+                "arc_src_halo", "graph_of_node", "nodegraph_weight", "agg_arc_labels", "agg_node_labels",
+                "type_mask", "agg_component")
 
 
 def _pad_blocks(mats):
@@ -279,9 +296,9 @@ def partition_graph(g: GraphObject, n_parts: int, pad_multiple: int = 8, halo: b
     ``dense_blocks=True`` builds each part's local and halo block operators;
     ``agg_dtype`` (needs ``dense_blocks``) stores the local one quantised or
     cast (``_local_operators``).  ``reorder='rcm'`` relabels the nodes by
-    ``locality_order`` first."""
-    if isinstance(g, CompositeGraphObject):
-        raise NotImplementedError("composite graphs on the partitioned engine are not ported yet (ROADMAP queue 10c)")
+    ``locality_order`` first.  A ``CompositeGraphObject`` also gives each
+    part its rows' ``type_mask`` and their per-type neighbour-label sums
+    ``agg_component``, summed in f64 and cast once."""
     if reorder not in ("none", "rcm"):
         raise ValueError(f"unknown reorder {reorder!r} (none | rcm)")
     if agg_dtype is not None and not dense_blocks:
@@ -305,6 +322,8 @@ def partition_graph(g: GraphObject, n_parts: int, pad_multiple: int = 8, halo: b
 
     dtype = floatx()
     dn, da, t_dim = g.nodes.shape[1], g.DIM_ARC_LABEL, g.DIM_TARGET
+    composite = isinstance(g, CompositeGraphObject)
+    type_mask = np.zeros((n_parts, np_pad, g.num_types), bool) if composite else None
     nodes = np.zeros((n_parts, np_pad, dn), dtype)
     node_mask = np.zeros((n_parts, np_pad), bool)
     a_srcg = np.zeros((n_parts, ap_pad), np.int32)
@@ -342,6 +361,8 @@ def partition_graph(g: GraphObject, n_parts: int, pad_multiple: int = 8, halo: b
         nodes[p, :size] = g.nodes[lo:hi]
         node_mask[p, :size] = True
         e = edges_per_part[p]
+        if composite:
+            type_mask[p, :size] = g.type_mask[lo:hi]
         a_srcg[p, : len(e)] = src_global_new[e]
         a_dstl[p, : len(e)] = dst[e] - lo
         a_w[p, : len(e)] = g.arcnode_weight[e]
@@ -398,12 +419,23 @@ def partition_graph(g: GraphObject, n_parts: int, pad_multiple: int = 8, halo: b
     # batch-constant per-part neighbour-label sums, accumulated in f64
     agg_arc_pre = np.zeros((n_parts, np_pad, da), np.float64)
     agg_node_pre = np.zeros((n_parts, np_pad, dn), np.float64)
+    dims = [int(d) for d in g.DIM_NODE_LABEL]
+    agg_comp_pre = np.zeros((n_parts, np_pad, sum(dims) + da), np.float64) if composite else None
     for p in range(n_parts):
         e = edges_per_part[p]
         d_local = dst[e] - p * chunk
         w64 = g.arcnode_weight[e].astype(np.float64)
         np.add.at(agg_arc_pre[p], d_local, g.arcs[e, 2:].astype(np.float64) * w64[:, None])
         np.add.at(agg_node_pre[p], d_local, g.nodes[src[e]].astype(np.float64) * w64[:, None])
+        if composite:
+            # type t's columns: Σ over the arcs from type-t sources of w·nodes[src, :d_t]; then Σ w·arc labels
+            off = 0
+            for t, d_t in enumerate(dims):
+                gate = g.type_mask[src[e], t].astype(np.float64)
+                np.add.at(agg_comp_pre[p][:, off:off + d_t], d_local,
+                          g.nodes[src[e], :d_t].astype(np.float64) * (w64 * gate)[:, None])
+                off += d_t
+            agg_comp_pre[p][:, off:] = agg_arc_pre[p]
 
     local_ops = halo_ops = None
     if dense_blocks:
@@ -431,18 +463,20 @@ def partition_graph(g: GraphObject, n_parts: int, pad_multiple: int = 8, halo: b
         target_mask=target_mask, sample_weight=sample_weight, publish_local=publish_local,
         publish_mask=publish_mask, arc_src_halo=arc_src_halo, graph_of_node=graph_of_node,
         nodegraph_weight=nodegraph_weight, local_ops=local_ops, halo_ops=halo_ops,
-        agg_arc_labels=agg_arc_pre.astype(dtype), agg_node_labels=agg_node_pre.astype(dtype), focus=g.focus,
+        agg_arc_labels=agg_arc_pre.astype(dtype), agg_node_labels=agg_node_pre.astype(dtype), type_mask=type_mask,
+        agg_component=None if agg_comp_pre is None else agg_comp_pre.astype(dtype), focus=g.focus,
         dim_node_label=tuple(int(d) for d in g.DIM_NODE_LABEL), n_parts=n_parts, nodes_per_part=np_pad,
         n_graphs=g_pad,
     )
 
 
 class PartitionedGNN:
-    """The sharded unfolding engine around a homogeneous ``GNNnodeBased`` /
-    ``GNNarcBased`` / ``GNNgraphBased`` model, run by every rank of
-    ``group`` (default: the world) on its own ``GraphShard``.  The model's
-    parameters must be equal on every rank (build it from one seed, or load
-    one state dict)."""
+    """The sharded unfolding engine around a ``GNNnodeBased`` /
+    ``GNNarcBased`` / ``GNNgraphBased`` model or a composite one
+    (``models/composite.py``, on the parts of a composite graph), run by
+    every rank of ``group`` (default: the world) on its own ``GraphShard``.
+    The model's parameters must be equal on every rank (build it from one
+    seed, or load one state dict)."""
 
     def __init__(self, gnn, group=None, transport: str = "collective", tp_shards: int = 1, model_group=None):
         """``tp_shards > 1`` shards the state net's features over
@@ -451,19 +485,20 @@ class PartitionedGNN:
         if transport not in TRANSPORTS:
             raise ValueError(f"transport {transport!r} must be one of {TRANSPORTS}")
         import torch.distributed as dist
+        from torch import nn
 
         self.gnn = gnn
+        self.composite = isinstance(getattr(gnn, "net_state", None), nn.ModuleList)
         self.group = dist.group.WORLD if group is None else group
         self.transport = transport
         self.tp_state = self.tp_local = None
         self.model_group = None
         if tp_shards > 1:
-            from torch import nn
-
             from gnnkeras_tpu_torch.parallel.tensor_parallel import TensorParallelMLP
 
-            if isinstance(gnn.net_state, nn.ModuleList):
-                raise NotImplementedError("tensor parallelism composes with homogeneous models")
+            if self.composite:
+                raise NotImplementedError("tensor parallelism composes with homogeneous models (expert parallelism, "
+                                          "parallel/expert.py, shards a composite model's per-type nets)")
             self.model_group = dist.group.WORLD if model_group is None else model_group
             self.tp_state = TensorParallelMLP(gnn.net_state, tp_shards, self.model_group)
 
@@ -576,6 +611,9 @@ class PartitionedGNN:
             ext = exchange(x)
             return segment_sum(ext[src_ext] * shard.arc_weight[:, None], shard.arc_dst_local, np_local)
 
+        composite = self.composite
+        if composite and shard.type_mask is None:
+            raise ValueError("a composite model needs the parts of a composite graph (type_mask set)")
         net = gnn.net_state if self.tp_state is None else self.tp_local_module()
         ds = gnn.state_vect_dim
         if ds > 0:
@@ -594,21 +632,42 @@ class PartitionedGNN:
             settle_ring()  # pmax synchronises with the card
             return pmax(local.to(torch.int32).reshape(1), group)[0] > 0
 
-        def transition(state, bn, aggregated=None):
-            if aggregated is None:
-                aggregated = aggregate(state)
-            parts = [state, shard.nodes] if ds > 0 else [state]
-            inp = torch.cat(parts + [aggregated, agg_nodes, shard.agg_arc_labels], dim=1)
-            return net.run(inp, feature_major=False, training=training, mask=shard.node_mask, generator=generator,
-                           bn_state=bn, group=group)
+        if not composite:
+            def transition(state, bn, aggregated=None):
+                if aggregated is None:
+                    aggregated = aggregate(state)
+                parts = [state, shard.nodes] if ds > 0 else [state]
+                inp = torch.cat(parts + [aggregated, agg_nodes, shard.agg_arc_labels], dim=1)
+                return net.run(inp, feature_major=False, training=training, mask=shard.node_mask,
+                               generator=generator, bn_state=bn, group=group)
+        else:
+            masks = [shard.type_mask[:, t] & shard.node_mask for t in range(len(gnn.net_state))]
+
+            def transition(state, bn, aggregated=None):
+                """One state net per type over the part's rows (``[label[:,
+                :d_t] | state | Σstate | per-type label sums | Σarcs]``),
+                BatchNorm over the type's rows of every rank, the outputs
+                summed through the type masks."""
+                if aggregated is None:
+                    aggregated = aggregate(state)
+                new_state, new_bn = torch.zeros_like(state), {}
+                for t, (net_t, d_t) in enumerate(zip(gnn.net_state, shard.dim_node_label)):
+                    inp = torch.cat([shard.nodes[:, :d_t], state, aggregated, shard.agg_component], dim=1)
+                    out_t, bn_t = net_t.run(inp, feature_major=False, training=training, mask=masks[t],
+                                            generator=generator, bn_state=gnn._of_type(bn, t), group=group)
+                    new_state = new_state + torch.where(masks[t][:, None], out_t, 0.0)
+                    new_bn.update({f"{t}.{key}": value for key, value in bn_t.items()})
+                return new_state, new_bn
 
         peel = shard.agg_node_labels if ds == 0 and gnn.max_iteration >= 1 else None
-        k, state, bn_state = run_unfold_loops(gnn, shard, state0, torch.ones_like(state0), net.bn_state(),
+        bn0 = gnn._bn_state() if composite else net.bn_state()
+        k, state, bn_state = run_unfold_loops(gnn, shard, state0, torch.ones_like(state0), bn0,
                                               transition, training, peel_agg=peel, predicate=predicate)
 
         valid = shard.arc_mask if shard.focus == "a" else shard.node_mask
         row_mask = shard.set_mask & shard.output_mask & valid
-        state_c = torch.cat([state, shard.nodes], dim=1) if ds else state
+        # the composite readouts read the state only
+        state_c = torch.cat([state, shard.nodes], dim=1) if ds and not composite else state
         if shard.focus == "a":
             x = torch.cat([exchange(state_c)[src_ext], state_c[shard.arc_dst_local.long()], shard.arc_label], dim=1)
         else:

@@ -426,12 +426,15 @@ def test_ring_transport_refuses_to_train(port_results):
 
 
 def test_engine_refuses_what_is_not_ported():
-    from gnnkeras_tpu_torch.data.synthetic import composite_of, large_banded_graph, large_graph_gnn
+    from gnnkeras_tpu_torch.data.synthetic import composite_of, large_banded_graph, large_graph_gnn, typed_cgnn
     from gnnkeras_tpu_torch.parallel.partition import PartitionedGNN, partition_graph
 
-    # composite graphs on the partitioned engine are queue 10c
-    with pytest.raises(NotImplementedError, match="queue 10c"):
-        partition_graph(composite_of(large_banded_graph(256, band=8)), 2)
+    # composite graphs partition (tests/test_torch_partition_composite.py
+    # holds them to JAX); tensor parallelism composes with homogeneous models only
+    pg = partition_graph(composite_of(large_banded_graph(256, band=8)), 2)
+    assert pg.type_mask.shape == (2, 128, 1) and pg.agg_component.shape == (2, 128, 10)
+    with pytest.raises(NotImplementedError, match="homogeneous"):
+        PartitionedGNN(typed_cgnn(0, device="cpu"), tp_shards=2)
     # a tensor-parallel engine (tp_shards > 1, ported) trains and infers only
     # through the hybrid step, as the JAX package's
     engine = PartitionedGNN(large_graph_gnn("cpu"), tp_shards=2)
