@@ -223,8 +223,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    inside a part), and the band-384 graph at 131,072 nodes as a 1-type
    composite graph (quantised int8 blocks: row 8), each against the single
    card on the whole graph; the ring, the diagonal and row 8 checked on every
-   rank's own operator; (d) ``tools/bench_packed.py`` on the packed bench
-   batch.  Printed: every leg's forward and step ms a rank (host clock, after
+   rank's own operator (each step's reference takes the ranks' selu branches,
+   ``selu_branches``: a branch may differ only where the single card's
+   pre-activation lies within the state bound, 1e-5, of the kink at 0);
+   (d) ``tools/bench_packed.py`` on the packed bench batch.  Printed: every leg's forward and step ms a rank (host clock, after
    a barrier) beside the single card's.
 
 Then the phase times, one JSON line listing the kernels, the card line
@@ -977,6 +979,54 @@ def check_step(label, got, ref, grad_atol_rel=1e-6):
     return {"loss": got["loss"], "loss_reference": ref["loss"], "grad_max_rel_diff": worst,
             "grad_max_tolerance_share": grad_tolerance_share(got["grads"], ref["grads"], grad_atol_rel),
             "grad_atol_rel": grad_atol_rel, "adam_entries_excluded": excluded}
+
+
+@contextlib.contextmanager
+def selu_branches(record=None, pin=None):
+    """The state nets' selu with its branch recorded or pinned, so that a
+    step can be held to another engine's at phase 5's bounds.  selu has no
+    derivative at 0 (slope 1.758 from the left, 1.051 from the right): a
+    pre-activation within rounding of 0 takes one branch in one engine and
+    the other in the other, and that row's gradient then moves by a
+    share of the leaf that no sum order explains.  ``record``: a list that
+    gets each call's ``x > 0`` (rows × units, NumPy; row-major engines).
+    ``pin``: one such array a call, in order; call i takes that branch on
+    the array's rows (the first rows of ``x``, row- or feature-major) and
+    its own on the others, with the arithmetic of ``models.mlp``'s selu.
+    Yields a dict: ``calls``, ``flips`` (pinned entries whose own branch
+    differs) and ``flip_max_abs_x`` (the largest |x| among them)."""
+    import torch
+    from gnnkeras_tpu_torch.models import mlp
+
+    base = mlp.ACTIVATIONS["selu"]
+    pinned = iter(pin) if pin is not None else None
+    seen = {"calls": 0, "flips": 0, "flip_max_abs_x": 0.0}
+
+    def selu(x):
+        seen["calls"] += 1
+        if record is not None:
+            record.append((x > 0).cpu().numpy())
+        if pinned is None:
+            return base(x)
+        want = next(pinned, None)
+        assert want is not None, f"selu call {seen['calls']} has no pinned branch ({len(pin)} given)"
+        want = torch.as_tensor(want, device=x.device)
+        fm = x.shape[1] != want.shape[1]  # feature-major (units, N)
+        rows = (x.T if fm else x)[:want.shape[0]]
+        flip = (rows > 0) != want
+        if bool(flip.any()):
+            seen["flips"] += int(flip.sum())
+            seen["flip_max_abs_x"] = max(seen["flip_max_abs_x"], float(rows.detach()[flip].abs().max()))
+        positive = (x.T if fm else x) > 0
+        positive[:want.shape[0]] = want
+        return mlp._SELU_SCALE * torch.where(positive.T if fm else positive, x, mlp._SELU_ALPHA * torch.expm1(x))
+
+    mlp.ACTIVATIONS["selu"] = selu
+    try:
+        yield seen
+    finally:
+        mlp.ACTIVATIONS["selu"] = base
+    assert pin is None or seen["calls"] == len(pin), (seen["calls"], len(pin))
 
 
 def train_phase(label, make_model, b_gpu, b_cpu, card, per_step, out_rows=None, n_arcs=None,
@@ -3583,11 +3633,13 @@ def _xp_rank(rank, world, inp, ck):
                 leg["ring_train"] = str(err)
         engine = PartitionedGNN(model)
         kernels.reset_launches()
-        with strip_widths() as widths:
+        branches = []
+        with strip_widths() as widths, selu_branches(record=branches):
             logs = engine.train_step(shard)
             torch.cuda.synchronize()
         leg["step"] = {**step_arrays(model, logs["loss"]), "k": float(logs["k"]), "launches": _launched(),
-                       "widths": widths.tally}
+                       "widths": widths.tally,
+                       "selu_positive": [(np.packbits(m[:size]), m[:size].shape) for m in branches]}
         leg["step"]["train_step_ms"], _ = _timed(lambda: engine.train_step(shard), reps=3)
         res["partitioned"][key] = leg
     leg_done("composite_partitioned")
@@ -3711,10 +3763,13 @@ def expert_pipeline_section(card, bench, b_bench, b_bench_cpu, packed_parts):
     refs["pp_m4"] = step_arrays(lgnn4, sum(losses) / len(losses))
     del model, lgnn, lgnn4, grads
     # the composite partitioned legs: the single card on each whole graph (the int8 leg's reference
-    # holds the weights of its parts' bf16 diagonals: the arcs inside a part rounded to bf16)
-    for key, g, make, loss in (("typed", typed, lambda d: typed_cgnn(0, d), "categorical_crossentropy"),
-                               ("typed_int8", typed_u, lambda d: typed_cgnn(0, d), "categorical_crossentropy"),
-                               ("band384_int8", band, single_type_cgnn, "mse")):
+    # holds the weights of its parts' bf16 diagonals: the arcs inside a part rounded to bf16); their
+    # steps come after the ranks, on the ranks' selu branches
+    part_legs = (("typed", typed, lambda d: typed_cgnn(0, d), "categorical_crossentropy"),
+                 ("typed_int8", typed_u, lambda d: typed_cgnn(0, d), "categorical_crossentropy"),
+                 ("band384_int8", band, single_type_cgnn, "mse"))
+    ref_batches = {}
+    for key, g, make, loss in part_legs:
         b = from_graph_object(g, device="cuda", dense_blocks=key != "typed_int8")
         if key == "typed_int8":
             b = local_weights_bf16(b, int(g.nodes.shape[0]), XP_RANKS)
@@ -3723,10 +3778,8 @@ def expert_pipeline_section(card, bench, b_bench, b_bench_cpu, packed_parts):
         n = int(g.nodes.shape[0])
         refs[key] = {"k": float(k), "state": state[:n].cpu().numpy(), "out": o[mask].cpu().numpy(),
                      "forward_ms": host_ms(lambda: model.forward(b))}
-        logs, _ = train_step(model, b, model.next_rng())
-        refs[key]["step"] = step_arrays(model, logs["loss_sum"] / logs["count"])
-        refs[key]["step"]["train_step_ms"] = host_ms(lambda: train_step(model, b, model.next_rng()), reps=3)
-        del b, model
+        ref_batches[key] = b
+        del model
     torch.cuda.empty_cache()
 
     inputs = [{"typed": b_typed_cpu, "bench": b_bench_cpu, "micro": micro_cpu, "ep_graphs": ep_graphs,
@@ -3739,6 +3792,26 @@ def expert_pipeline_section(card, bench, b_bench, b_bench_cpu, packed_parts):
     out["ranks_s"] = time.perf_counter() - t0
     out["ranks"] = ranks
     phase4, deep = (1e-5, 1e-6), (1e-5, 1e-5)
+    for key, g, make, loss in part_legs:
+        # the single card's step on the branches the ranks' step took (``selu_branches``): the two
+        # engines' pre-activations differ by f32 rounding, so a branch may differ only within the
+        # state bound of the kink
+        b = ref_batches.pop(key)
+        branches = [np.concatenate([np.unpackbits(packed, count=int(np.prod(shape))).reshape(shape).astype(bool)
+                                    for packed, shape in parts_of_call])
+                    for parts_of_call in zip(*[r["partitioned"][key]["step"].pop("selu_positive") for r in ranks])]
+        assert all(len(m) == g.nodes.shape[0] for m in branches), [m.shape for m in branches]
+        model = compiled(make("cuda"), loss)
+        logs, _ = train_step(model, b, model.next_rng())
+        refs[key]["step_unpinned"] = step_arrays(model, logs["loss_sum"] / logs["count"])
+        model = compiled(make("cuda"), loss)
+        with selu_branches(pin=branches) as pinned:
+            logs, _ = train_step(model, b, model.next_rng())
+        assert pinned["flip_max_abs_x"] <= deep[1], (key, pinned)
+        refs[key]["step"] = {**step_arrays(model, logs["loss_sum"] / logs["count"]), "selu": pinned}
+        refs[key]["step"]["train_step_ms"] = host_ms(lambda: train_step(model, b, model.next_rng()), reps=3)
+        del b, model
+    torch.cuda.empty_cache()
 
     def share(a, b, tol):
         return float((np.abs(a - b) / (tol[1] + tol[0] * np.abs(b))).max())
@@ -3832,7 +3905,11 @@ def expert_pipeline_section(card, bench, b_bench, b_bench_cpu, packed_parts):
                                           "forward_ms_single_card": ref["forward_ms"]}
         steps = [check_step(f"{key} partitioned step rank {r}", leg["step"], ref["step"], grad_atol_rel=1e-4)
                  for r, leg in enumerate(legs)]
-        part_res[(key, "step")] = {**steps[0], "launches": legs[0]["step"]["launches"],
+        part_res[(key, "step")] = {**steps[0], "selu_branches_pinned": ref["step"]["selu"],
+                                   # a reading, no check: rank 0 against the single card on its own branches
+                                   "grad_max_tolerance_share_unpinned": grad_tolerance_share(
+                                       legs[0]["step"]["grads"], ref["step_unpinned"]["grads"], 1e-4),
+                                   "launches": legs[0]["step"]["launches"],
                                    "train_step_ms": [leg["step"]["train_step_ms"] for leg in legs],
                                    "train_step_ms_single_card": ref["step"]["train_step_ms"]}
     for r in ranks:
