@@ -227,7 +227,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ``selu_branches``: a branch may differ only where the single card's
    pre-activation lies within the state bound, 1e-5, of the kink at 0);
    (d) ``tools/bench_packed.py`` on the packed bench batch.  Printed: every leg's forward and step ms a rank (host clock, after
-   a barrier) beside the single card's.
+   a barrier) beside the single card's;
+23. the user surface and the native host tier, on phase 19's 4,337
+   molecules written as a TU dump (and 1,000 of them in arc focus as a
+   saved ``GraphObject`` dataset): (a) ``native.available()`` (built in
+   phase 1), each of the seven C++ functions bit for bit against its NumPy
+   path on full-size inputs (the bench batch's strip builds and label sums,
+   the 500k graph's arcs, the dump's files), and the host build seconds of
+   the native path beside the NumPy path's for the bench batch, the 500k
+   banded and band-384 builds and a sequencer build and rebuild of 1,000
+   molecules (recorded, not claimed); (b) ``python -m gnnkeras_tpu_torch.cli``
+   in subprocesses on the card: ``train`` (the default config: the
+   flagship through the strip kernel, 2 epochs, ``--save``), ``train`` with
+   an arc-focus config, ``evaluate``, ``predict`` against ``predict --device
+   cpu`` (phase 4's bounds), ``export`` (the artifact's call against the
+   saved model's forward), each run through ``cli.main`` in a ``python -c``
+   wrapper that writes the process's kernel launches to its standard error,
+   and rows 1/1b and 5-7 checked on the CLI's own batches (train's first
+   batch, predict's test batch, the arc train's first batch);
+   (c) ``train --parallel packed --parallel-devices 4`` (4 ranks sharing the
+   card) and ``evaluate`` of its saved weights; (d) ``bench`` at full scale,
+   alone on the card (its JSON line printed); (e) ``tools/starter.py``
+   (GNN; its History and test logs against the same starter fitted on the
+   CPU from the same initial weights, rtol 1e-4: six Adam steps carry the
+   f32 sums' order), ``tools/starter_composite.py`` (CLGNN: finite logs;
+   its random initial state is drawn on the card, so it is held to the
+   JAX example in the CPU tests only) and ``tools/serve.py`` (Predictor
+   through row 2, the artifact, one HTTP request; the served rows against
+   the same Predictor on the CPU at phase 3's bound), 2 epochs each; (f) ``utils/profiling.trace`` around one eval forward in a
+   subprocess, whose trace must name ``annotate``'s span and hold device
+   kernels.
 
 Then the phase times, one JSON line listing the kernels, the card line
 again, and as the last line ``{"ok": true, "device": {...}}``.  The full log also goes to
@@ -3936,6 +3965,465 @@ def expert_pipeline_section(card, bench, b_bench, b_bench_cpu, packed_parts):
     return out
 
 
+# -- phase 23: the user surface and the native host tier ----------------------------------------------------------
+# the CLI as ``python -m gnnkeras_tpu_torch.cli`` runs it, plus one line on
+# standard error: the process's kernel launches
+CLI = [sys.executable, "-c",
+       "import json, sys; from gnnkeras_tpu_torch import cli, kernels; rc = cli.main(sys.argv[1:]); "
+       "print(json.dumps({'kernel_launches': dict(kernels.LAUNCHES)}), file=sys.stderr); sys.exit(rc)"]
+
+
+def same_bits(a, b):
+    """Two results of a native function equal bit for bit: arrays (dtype,
+    shape and bytes), tuples of them, or None."""
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, tuple):
+        return isinstance(b, tuple) and len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+@contextlib.contextmanager
+def recorded_native_calls(names):
+    """Within it, every call of the named ``native`` functions records a
+    copy of its arguments ({name: [(args, kwargs), ...]})."""
+    from gnnkeras_tpu_torch import native
+
+    calls = {name: [] for name in names}
+    real = {name: getattr(native, name) for name in names}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            calls[name].append(([a.copy() if isinstance(a, np.ndarray) else a for a in args], dict(kwargs)))
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(native, name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(native, name, real[name])
+
+
+def native_vs_numpy(name, args, kwargs=None):
+    """``native.<name>`` through the library and through its NumPy path on
+    fresh copies of ``args``: asserts the same bits; returns (native s,
+    NumPy s)."""
+    from gnnkeras_tpu_torch import native
+
+    fresh = lambda: [a.copy() if isinstance(a, np.ndarray) else a for a in args]
+    fn = getattr(native, name)
+    t0 = time.perf_counter()
+    got = fn(*fresh(), **(kwargs or {}))
+    t1 = time.perf_counter()
+    with native.numpy_path():
+        want = fn(*fresh(), **(kwargs or {}))
+    t2 = time.perf_counter()
+    assert same_bits(got, want), f"native {name} differs from its NumPy path"
+    return t1 - t0, t2 - t1
+
+
+def host_build_pair(label, build, turns=1):
+    """``build()`` (synchronised) through the native tier, then through the
+    NumPy paths (``turns`` 2: native, NumPy, NumPy, native), the results
+    equal bit for bit (``same_batch``): the host seconds of each path."""
+    import torch
+    from gnnkeras_tpu_torch import native
+
+    def timed(numpy_path):
+        with native.numpy_path() if numpy_path else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            out = build()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+    order = [False, True] if turns == 1 else [False, True, True, False]
+    times = {"native_s": [], "numpy_s": []}
+    first = None
+    for numpy_path in order:
+        got, s = timed(numpy_path)
+        times["numpy_s" if numpy_path else "native_s"].append(s)
+        if first is None:
+            first = got
+        else:
+            same_batch(first, got, f"{label}: native against NumPy build")
+        del got
+    del first
+    torch.cuda.empty_cache()
+    return {**times, "ratio": float(np.median(times["numpy_s"]) / np.median(times["native_s"]))}
+
+
+def native_section(card, bench, bench_u, g_large, molecules, dump):
+    """Phase 23 (a): the native host tier on the card's host: every function
+    against its NumPy path on full-size inputs, and the host build seconds
+    of the native path beside the NumPy path's."""
+    import torch
+    from gnnkeras_tpu_torch import from_graph_object, native
+    from gnnkeras_tpu_torch.data import MultiGraphSequencer
+    from gnnkeras_tpu_torch.data.synthetic import ATOM_TYPE_BOUNDS, bench_graph, large_banded_graph
+
+    assert native.available(), f"native host tier unavailable: {native.build_error()}"
+    t_phase = time.perf_counter()
+    seconds = {}
+    # scatter_add_3d, factor_mask_scale and agg_label_sums: the calls of the
+    # bench batch's build (bf16 strips: the factorisation fails) and of its
+    # twin without parallel arcs (int8 strips: it succeeds)
+    recorded = {}
+    for label, g in (("bench", bench), ("bench_without_parallel_arcs", bench_u)):
+        with recorded_native_calls(("scatter_add_3d", "factor_mask_scale", "agg_label_sums")) as calls:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                from_graph_object(g, slot_pack=128, strip_dtype="int8", device="cpu")
+        for name, cs in calls.items():
+            assert cs, (label, name)
+            for i, (args, kwargs) in enumerate(cs):
+                seconds[f"{name}:{label}:{i}"] = native_vs_numpy(name, args, kwargs)
+        recorded[label] = {name: len(cs) for name, cs in calls.items()}
+    # agg_component_sums: the bench batch's arcs and labels typed into 3 atom types
+    src, dst = bench.arcs[:, 0].astype(np.int32), bench.arcs[:, 1].astype(np.int32)
+    types = np.searchsorted(ATOM_TYPE_BOUNDS[:-1], np.argmax(bench.nodes, axis=1), side="right")
+    seconds["agg_component_sums:bench_3_types"] = native_vs_numpy(
+        "agg_component_sums", [src, dst, bench.arcnode_weight, bench.nodes, np.eye(3, dtype=bool)[types],
+                               ATOM_TYPE_BOUNDS, bench.nodes.shape[0]])
+    # canonical_arcs and unique_i64: the 500k graph's 3,892,679 arcs shuffled,
+    # 100,000 of them twice
+    rng = np.random.default_rng(0)
+    perm = rng.permutation(len(g_large.arcs))
+    raw = np.concatenate([g_large.arcs[perm], g_large.arcs[perm[:100_000]]])
+    seconds["canonical_arcs:500k"] = native_vs_numpy("canonical_arcs", [raw])
+    assert same_bits(native.canonical_arcs(raw), g_large.arcs)
+    keys = raw[:, 0].astype(np.int64) * g_large.nodes.shape[0] + raw[:, 1].astype(np.int64)
+    seconds["unique_i64:500k"] = native_vs_numpy("unique_i64", [keys])
+    seconds["unique_i64_inverse:500k"] = native_vs_numpy("unique_i64", [keys, True])
+    del raw, keys
+    # load_ints: the TU dump's files
+    for name, cols in (("edges", 2), ("graph_indicator", 1), ("node_labels", 1)):
+        path = os.path.join(dump, f"SYNTH_{name}.txt")
+        seconds[f"load_ints:{name}"] = native_vs_numpy("load_ints", [path, cols])
+    checks_s = time.perf_counter() - t_phase
+
+    # host build seconds: the bench batch native, NumPy, NumPy, native; the 500k builds native then
+    # NumPy, one of each (readings, not a comparison)
+    builds = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # the bench batch's bf16 degrade
+        builds["bench_batch"] = host_build_pair(
+            "bench", lambda: from_graph_object(bench_graph(), slot_pack=128, strip_dtype="int8", device="cuda"),
+            turns=2)
+    builds["large_500k_banded"] = host_build_pair(
+        "500k banded", lambda: from_graph_object(large_banded_graph(), agg_dtype="auto", device="cuda"))
+    builds["large_500k_band384_quantised"] = host_build_pair(
+        "500k band 384", lambda: from_graph_object(large_banded_graph(band=384), agg_dtype="int8", device="cuda"))
+
+    def sequencer_build_and_rebuild():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            t0 = time.perf_counter()
+            seq = MultiGraphSequencer(molecules[:1000], "g", "average", batch_size=1000, slot_pack=128,
+                                      strip_dtype="int8", device="cuda")
+            first = seq[0]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            seq.on_epoch_end()
+            seq.wait_for_rebuild()
+            torch.cuda.synchronize()
+            return first, t1 - t0, time.perf_counter() - t1
+
+    seq_s = {k: {"native_s": [], "numpy_s": []} for k in ("sequencer_1000_build", "sequencer_1000_rebuild")}
+    first = None
+    for numpy_path in (False, True, True, False, False, True):  # three of each, alternating
+        np.random.seed(3)
+        with native.numpy_path() if numpy_path else contextlib.nullcontext():
+            batch, build_s, rebuild_s = sequencer_build_and_rebuild()
+        key = "numpy_s" if numpy_path else "native_s"
+        seq_s["sequencer_1000_build"][key].append(build_s)
+        seq_s["sequencer_1000_rebuild"][key].append(rebuild_s)
+        if first is None:
+            first = batch
+        else:
+            same_batch(first, batch, "sequencer batch: native against NumPy build")
+    for key, t in seq_s.items():
+        builds[key] = {**t, "ratio": float(np.median(t["numpy_s"]) / np.median(t["native_s"]))}
+    res = {"phase": "native_host_tier", "available": True, "library": os.path.basename(native.library_path()),
+           "bit_identical": sorted(seconds), "recorded_calls": recorded,
+           "function_s_native_numpy": {k: list(v) for k, v in seconds.items()}, "checks_s": checks_s,
+           "host_build_s": builds, "card": card}
+    emit(res)
+    return res
+
+
+def start(name, cmd, procs):
+    """Start ``cmd`` from the checkout's root with the checkout importable;
+    registered in ``procs`` under ``name`` (the caller stops what is left)."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs[name] = (time.perf_counter(), subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                                         stderr=subprocess.PIPE, text=True))
+
+
+def cli_run(name, args, procs, device="cuda"):
+    """Start the CLI (``CLI``) with ``<args> --device <device>``."""
+    start(name, [*CLI, *args, "--device", device], procs)
+
+
+def cli_wait(name, procs, timeout=600):
+    """(stdout, the subprocess's kernel launches, seconds) of a CLI run
+    started by ``cli_run``; raises with its standard error when it fails."""
+    t0, proc = procs.pop(name)
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CLI {name} exited {proc.returncode}:\n{err[-6000:]}")
+    lines = [ln for ln in err.splitlines() if ln.startswith('{"kernel_launches"')]
+    assert lines, f"CLI {name} printed no kernel launches:\n{err[-3000:]}"
+    return out, json.loads(lines[-1])["kernel_launches"], time.perf_counter() - t0
+
+
+PROFILE_SCRIPT = r"""
+import json, sys
+import torch
+from gnnkeras_tpu_torch.data.synthetic import flagship_gnn, random_molecules
+from gnnkeras_tpu_torch.graph.batch import graphs_to_batch
+from gnnkeras_tpu_torch.utils.profiling import annotate, trace
+
+model = flagship_gnn("cuda", seed=0)
+batch = graphs_to_batch(random_molecules(256, seed=3), "g", "average", slot_pack=128, device="cuda")
+with torch.no_grad():
+    model.forward(batch, training=False)
+    torch.cuda.synchronize()
+    with trace(sys.argv[1]) as prof:
+        with annotate("eval_forward"):
+            model.forward(batch, training=False)
+dev = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) for e in prof.key_averages())
+print(json.dumps({"device_us": dev}))
+"""
+
+
+def user_surface_section(card, bench, bench_u, g_large):
+    """Phase 23 (module docstring): the native host tier, the CLI on the
+    card (single card and 4 ranks), the bench subcommand, the starter and
+    serving tools and a profiling trace.  The host builds, the timed kernel
+    checks and the bench run with nothing else on the card or the host;
+    the subprocesses of a stage run together.  Returns the launches and
+    kernel checks of the kernels line."""
+    import shutil
+
+    import torch
+    from gnnkeras_tpu_torch import (GNNConfig, GNNgraphBased, GraphObject, Predictor, from_graph_object, kernels,
+                                    load_exported)
+    from gnnkeras_tpu_torch.data.mutag import dataset_splits, load_tu_dataset
+    from gnnkeras_tpu_torch.data.synthetic import composite_of, random_molecules, write_tu_dump
+    from gnnkeras_tpu_torch.tools import serve, starter, starter_composite
+
+    out, times, procs, cli_out = {}, {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="phase23_")
+    try:
+        # the pipeline's molecules (phase 19) as a TU dump, 1,000 of them in
+        # arc focus as a saved GraphObject dataset
+        t0 = time.perf_counter()
+        molecules = random_molecules(4337, seed=0, min_nodes=5, max_nodes=56)
+        dump = write_tu_dump(molecules, os.path.join(tmp, "tu"), "SYNTH")
+        arcs_dir = os.path.join(tmp, "arcs")
+        GraphObject.save_dataset(arcs_dir, as_arc_focus(molecules[:1000], seed=8))
+        with open(os.path.join(tmp, "arc.json"), "w") as f:
+            f.write(GNNConfig(focus="a").to_json())
+        times["data"] = time.perf_counter() - t0
+
+        # -- (a) the native host tier, alone ------------------------------------------------------
+        t0 = time.perf_counter()
+        out["native"] = native_section(card, bench, bench_u, g_large, molecules, dump)
+        times["native"] = time.perf_counter() - t0
+
+        # -- stage 1: the CLI's trains (single card, arc focus, 4 ranks) and (f) the profiling trace
+        # in subprocesses; (e) the tools in this process meanwhile --------------------------------
+        t0 = time.perf_counter()
+        model_dir, packed_dir = os.path.join(tmp, "model"), os.path.join(tmp, "packed_model")
+        tu = ["--dataset", f"tu:{dump}:SYNTH", "--verbose", "0"]
+        cli_run("train", ["train", *tu, "--epochs", "2", "--save", model_dir], procs)
+        cli_run("train_arc", ["train", "--config", os.path.join(tmp, "arc.json"), "--dataset", f"npz:{arcs_dir}",
+                              "--verbose", "0", "--epochs", "2", "--save", os.path.join(tmp, "arc_model")], procs)
+        cli_run("train_packed", ["train", *tu, "--epochs", "1", "--parallel", "packed", "--parallel-devices", "4",
+                                 "--save", packed_dir], procs)
+        trace_dir = os.path.join(tmp, "trace")
+        start("profile", [sys.executable, "-c", PROFILE_SCRIPT, trace_dir], procs)
+
+        tools = {}
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        built = starter.build(list(molecules), device="cuda", seed=0)
+        initial = {k: v.detach().cpu().clone() for k, v in built["gnn"].state_dict().items()}
+        np.random.seed(5)  # the epoch-end reshuffle
+        res = starter.train(built, fit="gnn", epochs=2, verbose=0)
+        # the starters, as the repository's examples, build their sequencers
+        # without slot packing: the BCSR block route, no kernel of ours
+        tools["starter"] = {"test": res["test"], "history": res["history"].history, "s": time.perf_counter() - t1,
+                            "launches": dict(kernels.LAUNCHES)}
+        assert np.isfinite(list(res["test"].values())).all()
+        # the same starter on the CPU from the same initial weights
+        t1 = time.perf_counter()
+        host = starter.build(list(molecules), device="cpu", seed=0)
+        host["gnn"].load_state_dict(initial)
+        np.random.seed(5)
+        host = starter.train(host, fit="gnn", epochs=2, verbose=0)
+        for key, values in host["history"].history.items():
+            np.testing.assert_allclose(res["history"].history[key], values, rtol=1e-4, err_msg=key)
+        for key, value in host["test"].items():
+            np.testing.assert_allclose(res["test"][key], value, rtol=1e-4, err_msg=key)
+        tools["starter"]["cpu_twin"] = {"test": host["test"], "s": time.perf_counter() - t1}
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        res = starter_composite.run([composite_of(g) for g in molecules], device="cuda", epochs=2, fit="lgnn",
+                                    seed=0, verbose=0)
+        tools["starter_composite_clgnn"] = {"test": res["test"], "s": time.perf_counter() - t1,
+                                            "launches": dict(kernels.LAUNCHES)}
+        assert np.isfinite(list(res["test"].values())).all()
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        served = serve.run(list(molecules), device="cuda", epochs=2, requests=20, verbose=0)
+        out["serve_launches"] = dict(kernels.LAUNCHES)
+        tools["serve"] = {"accuracy": served["accuracy"], "s": time.perf_counter() - t1,
+                          "launches": out["serve_launches"], "request_s": served["request_s"]}
+        assert kernels.LAUNCHES["fused_unfold_t"] >= 20, kernels.LAUNCHES
+        # the served rows against the same Predictor on the CPU (phase 3's bound)
+        model = served["model"]
+        model_cpu = GNNgraphBased._from_json(model._json_config()).build(device="cpu")
+        model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        p, gte = served["predictor"], served["test_graphs"]
+        p_cpu = Predictor.for_graphs(model_cpu, gte, batch_size=8, fused="auto", device="cpu")
+        assert p.fused and p_cpu.fused
+        for take, got in zip(served["requests"], served["outputs"]):
+            np.testing.assert_allclose(got, p_cpu([gte[i] for i in take]), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(np.asarray(served["http"]["outputs"][0]), p([gte[0]]), rtol=1e-6, atol=1e-7)
+        o, m = served["artifact"]
+        _, _, want, want_m, _ = model.forward(served["template"], training=False)
+        np.testing.assert_array_equal(m, want_m.cpu().numpy())
+        np.testing.assert_allclose(o[m], want.cpu().numpy()[m], rtol=1e-5, atol=1e-6)
+        emit({"phase": "tools", **tools, "card": card})
+
+        def wait_train(name):
+            stdout, launches, s = cli_wait(name, procs, timeout=900)
+            cli_out[name] = {"result": json.loads(stdout.strip().splitlines()[-1]), "launches": launches, "s": s}
+            r = cli_out[name]["result"]
+            assert np.isfinite(r["test"]["loss"]) and np.isfinite(r["final_train"]["loss"]), (name, r)
+
+        wait_train("train")
+        wait_train("train_arc")
+        assert cli_out["train"]["launches"]["strip_matmul"] > 0 and cli_out["train"]["launches"]["strip_matmul_t"] > 0
+        arc_l = cli_out["train_arc"]["launches"]
+        assert arc_l["incidence_select"] > 0 and arc_l["incidence_scatter"] > 0, arc_l
+        _, prof = procs.pop("profile")
+        pout, perr = prof.communicate(timeout=600)
+        assert prof.returncode == 0, perr[-4000:]
+        files = os.listdir(trace_dir)
+        assert len(files) == 1, files
+        with open(os.path.join(trace_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name") for e in events}
+        kernel_events = sum(1 for e in events if e.get("cat") == "kernel")
+        assert "eval_forward" in names and kernel_events > 0, (len(events), kernel_events)
+        emit({"phase": "profiling_trace", "events": len(events), "kernel_events": kernel_events,
+              "annotated_span": "eval_forward", **json.loads(pout.strip().splitlines()[-1]), "card": card})
+
+        # -- stage 2 (while the 4 ranks train): evaluate, predict (card and CPU) and export the saved
+        # model; then evaluate the 4 ranks' weights ----------------------------------------------------
+        ck = ["--model", model_dir, *tu]
+        preds = {dev: os.path.join(tmp, f"preds_{dev}.npy") for dev in ("cuda", "cpu")}
+        cli_run("evaluate", ["evaluate", *ck], procs)
+        cli_run("predict", ["predict", *ck, "--out", preds["cuda"]], procs)
+        cli_run("predict_cpu", ["predict", *ck, "--out", preds["cpu"]], procs, device="cpu")
+        cli_run("export", ["export", *ck, "--out", os.path.join(tmp, "artifact")], procs)
+        wait_train("train_packed")
+        times["stage_1"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_run("evaluate_packed", ["evaluate", "--model", packed_dir, *tu], procs)
+        for name in ("evaluate", "predict", "predict_cpu", "export", "evaluate_packed"):
+            stdout, launches, s = cli_wait(name, procs)
+            cli_out[name] = {"launches": launches, "s": s, "stdout_tail": stdout.strip().splitlines()[-1:]}
+        ev = json.loads(cli_out["evaluate"]["stdout_tail"][0])
+        assert close(ev["loss"], cli_out["train"]["result"]["test"]["loss"]), (ev, cli_out["train"])
+        ev_packed = json.loads(cli_out["evaluate_packed"]["stdout_tail"][0])
+        assert close(ev_packed["loss"], cli_out["train_packed"]["result"]["test"]["loss"]), ev_packed
+        # export traces the forward (its kernels' fake versions): no launch there
+        for name in ("evaluate", "predict", "evaluate_packed"):
+            assert cli_out[name]["launches"]["strip_matmul"] > 0, (name, cli_out[name]["launches"])
+        assert not any(cli_out["predict_cpu"]["launches"].values())
+        cfg = GNNConfig(epochs=2)
+        graphs = load_tu_dataset(dump, "SYNTH")
+        for g in graphs:
+            g.setAggregation(cfg.aggregation_mode)
+        tr, te, _ = dataset_splits(graphs, seed=42)  # the CLI's split
+        p_card, p_host = np.load(preds["cuda"]), np.load(preds["cpu"])
+        assert p_card.shape == (len(te), 2) and np.isfinite(p_card).all()
+        np.testing.assert_allclose(p_card, p_host, rtol=1e-5, atol=1e-6)  # phase 4's bounds
+        # the exported artifact against the saved model's forward, on the export's template
+        saved = GNNgraphBased.load(model_dir, device="cuda")
+        art = load_exported(os.path.join(tmp, "artifact"), device="cuda")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            template = cfg.build_sequencer(tr[: cfg.batch_size], shuffle=False, device="cuda")[0]
+        kernels.reset_launches()
+        a_out, a_mask = art.call(template)
+        torch.cuda.synchronize()
+        artifact_launches = dict(kernels.LAUNCHES)
+        assert artifact_launches["strip_matmul"] > 0, artifact_launches
+        _, _, f_out, f_mask, _ = saved.forward(template, training=False)
+        assert torch.equal(a_mask, f_mask)
+        mk = f_mask.cpu().numpy()
+        np.testing.assert_allclose(a_out.cpu().numpy()[mk], f_out.cpu().numpy()[mk], rtol=1e-5, atol=1e-6)
+        times["stage_2"] = time.perf_counter() - t0
+
+        # -- the kernels on the CLI's own batches and at a served request's template, then (d)
+        # bench, each alone on the card -------------------------------------------------------------
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            cli_batch = cfg.build_sequencer(tr, shuffle=False, device="cuda")[0]  # its first training batch
+        out["strip_check"] = check_strip(cli_batch.strip, "cli_train_batch", timed=True)
+        out["strip_t_check"] = check_strip(cli_batch.strip, "cli_train_batch", timed=True, name="strip_matmul_t")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            predict_batch = cfg.build_sequencer(te, shuffle=False, device="cuda")[0]  # the batch predict sees
+        out["strip_predict_check"] = check_strip(predict_batch.strip, "cli_predict_batch", timed=True)
+        arc_graphs = GraphObject.load_dataset(arcs_dir, "a", "average")
+        arc_batch = GNNConfig(focus="a").build_sequencer(dataset_splits(arc_graphs, seed=42)[0], shuffle=False,
+                                                         device="cuda")[0]
+        out["select_check"], out["scatter_check"] = check_incidence(
+            arc_batch.arc_inc, arc_batch.arc_src.cpu().numpy(), arc_batch.arc_dst.cpu().numpy(), "cli_arc_batch",
+            timed=True)
+        req = GraphObject.merge([gte[i] for i in served["requests"][0]], focus="g", aggregation_mode="average")
+        req_batch = from_graph_object(req, pad_nodes=p.max_nodes, pad_arcs=p.max_arcs, tile_pack=True,
+                                      compact_gmax=p.max_graphs, compact_nspan=p.max_nodes // 128 + 1, device="cuda")
+        out["fused_check"] = check_fused(model, req_batch, "serve_tool_request", timed=True)
+        times["kernel_checks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_run("bench", ["bench"], procs)
+        stdout, launches, s = cli_wait("bench", procs)
+        bench_line = json.loads(stdout.strip().splitlines()[-1])
+        assert bench_line["metric"] == "transition_edges_per_s" and bench_line["value"] > 0, bench_line
+        assert bench_line["device"] == "cuda" and bench_line["card"], bench_line
+        assert launches["strip_matmul"] > 0, launches
+        cli_out["bench"] = {"result": bench_line, "launches": launches, "s": s}
+        times["bench"] = time.perf_counter() - t0
+        for name, r in cli_out.items():
+            emit({"phase": "cli", "command": name, **r, "card": card})
+        out["cli"] = cli_out
+        emit({"phase": "user_surface_timing", "phase_s": times, "artifact_call_launches": artifact_launches,
+              "card": card})
+        return out
+    finally:
+        for _, proc in procs.values():
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def close(a, b, rel=1e-6):
+    """``a`` within ``rel`` of ``b``: the same model's loss on the same
+    batches, computed by another process."""
+    return abs(a - b) <= rel * abs(b)
+
+
 def main():
     import torch
 
@@ -3963,8 +4451,13 @@ def main():
     kernels.build_all()
     ptxas = {n: [ln.strip() for ln in kernels.build_log(n).splitlines() if "registers" in ln or "spill" in ln]
              for n in kernels.SOURCES}
+    build_s = time.perf_counter() - t0
+    # the native host tier (g++), before any host build uses it
+    from gnnkeras_tpu_torch import native
+
+    assert native.available(), f"native host tier unavailable: {native.build_error()}"
     emit({"phase": "build", "card": card, "kind": kind, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": time.perf_counter() - t0, "ptxas": ptxas})
+          "build_s": build_s, "native_build_s": time.perf_counter() - t0 - build_s, "ptxas": ptxas})
     times["build"] = time.perf_counter() - t0
 
     # -- 2. kernel checks ----------------------------------------------------
@@ -4186,6 +4679,11 @@ def main():
     t_phase = time.perf_counter()
     xp = expert_pipeline_section(card, bench, b_bench, b_bench_cpu, dist.pop("packed_parts"))
     times["expert_pipeline"] = time.perf_counter() - t_phase
+
+    # -- 23. the user surface and the native host tier -----------------------------------
+    t_phase = time.perf_counter()
+    user = user_surface_section(card, bench, bench_u, large["graph"])
+    times["user_surface"] = time.perf_counter() - t_phase
     emit({"phase": "timing", "phase_s": times, "total_s": time.perf_counter() - t_start})
 
     # -- kernels, card, verdict ----------------------------------------------
@@ -4361,6 +4859,24 @@ def main():
         entry("ring_all_gather_composite_partitioned", "gnnkeras_tpu_torch/csrc/ring.cu", "gnnkeras_tpu/ops/ring.py:25",
               xp["ranks"][0]["partitioned"]["typed"]["pallas_ring"]["launches"]["ring_all_gather"],
               xp["ranks"][0]["ring_check"]),
+        # phase 23, launches counted in the CLI's own processes: rows 1/1b in
+        # the 2-epoch train (checked on its first training batch's operator),
+        # row 1 in predict (checked on the test split's batch), rows 5-7 (at or below 10,240 pairs: the fused
+        # kernel's pair list) in the arc-focus train (checked on its first
+        # batch's pairs), and row 2 in the serving tool (in this process,
+        # checked at a served request's template)
+        entry("strip_matmul_cli_train", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+              user["cli"]["train"]["launches"]["strip_matmul"], user["strip_check"]),
+        entry("strip_matmul_t_cli_train", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+              user["cli"]["train"]["launches"]["strip_matmul_t"], user["strip_t_check"]),
+        entry("strip_matmul_cli_predict", strip_src, "gnnkeras_tpu/ops/strip.py:278",
+              user["cli"]["predict"]["launches"]["strip_matmul"], user["strip_predict_check"]),
+        entry("incidence_select_cli_arc_train", inc_src, "gnnkeras_tpu/ops/incidence.py:375",
+              user["cli"]["train_arc"]["launches"]["incidence_select"], user["select_check"]),
+        entry("incidence_scatter_cli_arc_train", inc_src, "gnnkeras_tpu/ops/incidence.py:375",
+              user["cli"]["train_arc"]["launches"]["incidence_scatter"], user["scatter_check"]),
+        entry("fused_unfold_t_serve_tool", fused_src, "gnnkeras_tpu/ops/fused.py:241",
+              user["serve_launches"]["fused_unfold_t"], user["fused_check"]),
     ]})
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl"), "w") as f:

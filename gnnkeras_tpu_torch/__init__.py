@@ -21,6 +21,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 _EXPORTS = {
+    "GNNConfig": "gnnkeras_tpu_torch.config",
     "GraphBatch": "gnnkeras_tpu_torch.graph.batch",
     "from_graph_object": "gnnkeras_tpu_torch.graph.batch",
     "graphs_to_batch": "gnnkeras_tpu_torch.graph.batch",

@@ -5,8 +5,9 @@ Parses the TU format into per-graph GraphObjects / CompositeGraphObjects
 with one-hot node (14), edge (3) and target (2) labels, following the
 reference's procedure step by step, its global edge-row ``np.unique``
 re-sort included, so the dataset is the JAX package's, array for array.
-The integer files are read with ``np.loadtxt`` (the JAX package's native
-parser gives the same values; the port's copy of it is ROADMAP queue 11).
+The integer files are read by the native host tier's parser
+(``native.load_ints``; ``np.loadtxt`` where the library is unavailable,
+with the same values).
 Nothing is downloaded: ``load_mutag`` raises ``FileNotFoundError`` when the
 dump is absent.
 """
@@ -69,7 +70,10 @@ def load_tu_dataset(
         path += "/"
 
     def _load_int_file(p: str, columns: int = 1) -> np.ndarray:
-        return np.loadtxt(p, dtype=int, delimiter="," if columns > 1 else None, ndmin=2 if columns > 1 else 1)
+        # the native single-pass parser, else np.loadtxt: the same values
+        from gnnkeras_tpu_torch import native
+
+        return native.load_ints(p, columns)
 
     edges_ids = _load_int_file(path + f"{prefix}_edges.txt", columns=2)
     graph_of_node = _load_int_file(path + f"{prefix}_graph_indicator.txt")

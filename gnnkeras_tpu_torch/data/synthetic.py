@@ -66,9 +66,13 @@ def flagship_gnn(device="cuda", seed: int = 0) -> GNNgraphBased:
 BENCH_NODES, BENCH_ARCS, BENCH_GRAPHS = 131_488, 266_894, 4_337
 
 
-def bench_graph(seed: int = 0) -> GraphObject:
+def bench_graph(seed: int = 0, scale: float = 1.0) -> GraphObject:
+    """The bench batch; ``scale`` < 1 draws the same stand-in at that share
+    of its nodes, arcs and graphs (``bench.py``'s ``GNNK_BENCH_SCALE``)."""
     rng = np.random.default_rng(seed)
     n, a, G = BENCH_NODES, BENCH_ARCS, BENCH_GRAPHS
+    if scale < 1.0:
+        n, a, G = max(int(n * scale), 64), max(int(a * scale), 128), max(int(G * scale), 2)
     nodes = np.eye(14, dtype=np.float32)[rng.integers(0, 14, n)]
     graph_of_node = (np.arange(n, dtype=np.int64) * G) // n  # contiguous even split
     counts = np.bincount(graph_of_node, minlength=G)
@@ -302,3 +306,31 @@ def pipeline_lgnn(device="cuda", seed: int = 0, layers: int = 4, bn: bool = True
                          batch_normalization=bn)
         gnns.append(GNNgraphBased(net_state, net_output, STARTER_DIM_STATE, STARTER_MAX_ITER, STARTER_THRESHOLD))
     return LGNN(gnns, True, True).build(seed=seed, device=device)
+
+
+def write_tu_dump(graphs, folder: str, prefix: str = "SYNTH") -> str:
+    """Write graph-focused one-hot-labelled ``graphs`` (``random_molecules``)
+    as a TU-format dump in ``folder``: ``{prefix}_edges.txt`` (1-based
+    ``src, dst`` rows), ``_edge_labels``, ``_node_labels``,
+    ``_graph_indicator`` and ``_graph_labels`` (the argmax of each one-hot
+    label), which ``data/mutag.load_tu_dataset(folder, prefix)`` reads
+    back.  Returns ``folder``."""
+    import os
+
+    os.makedirs(folder, exist_ok=True)
+    edges, edge_labels, node_labels, indicator, graph_labels = [], [], [], [], []
+    offset = 0
+    for gid, g in enumerate(graphs, start=1):
+        n = g.nodes.shape[0]
+        edges.append(g.arcs[:, :2].astype(np.int64) + offset + 1)
+        edge_labels.append(np.argmax(g.arcs[:, 2:], axis=1))
+        node_labels.append(np.argmax(g.nodes, axis=1))
+        indicator.append(np.full(n, gid))
+        graph_labels.append(np.argmax(g.targets, axis=1))
+        offset += n
+    path = os.path.join(folder, prefix)
+    np.savetxt(f"{path}_edges.txt", np.concatenate(edges), fmt="%d", delimiter=", ")
+    for name, parts in (("edge_labels", edge_labels), ("node_labels", node_labels),
+                        ("graph_indicator", indicator), ("graph_labels", graph_labels)):
+        np.savetxt(f"{path}_{name}.txt", np.concatenate(parts), fmt="%d")
+    return folder

@@ -4,15 +4,23 @@ weights and the disjoint-union ``merge``.
 
 Operators travel as index + per-arc weight arrays (ArcNode/Adjacency) and
 ``(graph_of_node, nodegraph_weight)`` (NodeGraph); nothing sparse is
-materialised.  ``CompositeGraphObject`` adds a node-type mask and per-type
-label widths; its per-type adjacencies are never materialised (the
-composite models gate the shared arc weights by the source node's type).
-Persistence (``load``, ``get_dict_data``, ``CompositeAdjacencies_coo``)
-waits for ROADMAP queue 9.
+materialised on the way to the card.  ``CompositeGraphObject`` adds a
+node-type mask and per-type label widths; its per-type adjacencies are
+never materialised there (the composite models gate the shared arc weights
+by the source node's type).  The ``*_coo`` accessors build the scipy
+matrices for interop (scipy is imported inside them only).
+
+Persistence writes and reads the reference's formats, key for key, as the
+JAX package does: one ``.npz`` a graph (``save`` / ``load``), a folder of
+``.txt`` files a graph (``savetxt`` / ``load_txt``), and folders of either
+a dataset (``save_dataset(_txt)`` / ``load_dataset(_txt)``), so a file
+saved by either package loads in the other.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 from typing import Optional, Sequence
 
 import numpy as np
@@ -84,7 +92,9 @@ class GraphObject:
         if arcs_canonical:
             self.arcs = np.array(arcs, dtype=self.dtype)
         else:
-            self.arcs = np.unique(np.asarray(arcs), axis=0).astype(self.dtype)
+            from gnnkeras_tpu_torch import native
+
+            self.arcs = native.canonical_arcs(np.asarray(arcs)).astype(self.dtype)
         self.targets = np.atleast_2d(np.asarray(targets)).astype(self.dtype)
         self.sample_weight = (np.asarray(sample_weight) * np.ones(self.targets.shape[0])).astype(self.dtype)
 
@@ -161,6 +171,42 @@ class GraphObject:
     def num_graphs(self) -> int:
         return int(self.graph_of_node.max()) + 1 if self.nodes.shape[0] else 0
 
+    # -- scipy views of the operators ----------------------------------------------
+    def ArcNode_coo(self):
+        """(A, N): arc e → its destination node, valued ``arcnode_weight``."""
+        from scipy.sparse import coo_matrix
+
+        a = self.arcs.shape[0]
+        col = self.arcs[:, 1].astype(np.int64)
+        return coo_matrix((self.arcnode_weight, (np.arange(a), col)), shape=(a, self.nodes.shape[0]),
+                          dtype=self.dtype)
+
+    def Adjacency_coo(self):
+        """(N, N): source → destination, valued ``arcnode_weight``."""
+        from scipy.sparse import coo_matrix
+
+        row = self.arcs[:, 0].astype(np.int64)
+        col = self.arcs[:, 1].astype(np.int64)
+        n = self.nodes.shape[0]
+        return coo_matrix((self.arcnode_weight, (row, col)), shape=(n, n), dtype=self.dtype)
+
+    def NodeGraph_coo(self):
+        """(N, G): node → its graph, valued ``nodegraph_weight``; an empty
+        matrix for a node or arc focus graph without a readout."""
+        from scipy.sparse import coo_matrix
+
+        if self.focus != "g" and not np.any(self.nodegraph_weight):
+            return coo_matrix(np.zeros((0, 0), dtype=self.dtype))
+        row = np.arange(self.nodes.shape[0])
+        return coo_matrix((self.nodegraph_weight, (row, self.graph_of_node)),
+                          shape=(self.nodes.shape[0], self.num_graphs), dtype=self.dtype)
+
+    def setAggregation(self, aggregation_mode: str) -> None:
+        """Recompute the arc weights for ``aggregation_mode``."""
+        self._check_mode(aggregation_mode)
+        self.aggregation_mode = aggregation_mode
+        self.arcnode_weight = self._build_weights(aggregation_mode)
+
     def copy(self) -> "GraphObject":
         return GraphObject(
             nodes=self.nodes.copy(),
@@ -184,10 +230,91 @@ class GraphObject:
 
     __str__ = __repr__
 
+    # -- persistence (the reference's formats) --------------------------------------
+    def get_dict_data(self) -> dict:
+        """The ``.npz`` payload: nodes, arcs, targets, and the masks, sample
+        weights and NodeGraph triples ``[value, row, col]`` where they are
+        not the defaults."""
+        data = {"nodes": self.nodes, "arcs": self.arcs, "targets": self.targets}
+        if not np.all(self.set_mask):
+            data["set_mask"] = self.set_mask
+        if not np.all(self.output_mask):
+            data["output_mask"] = self.output_mask
+        if np.any(self.sample_weight != 1):
+            data["sample_weight"] = self.sample_weight
+        ng = self.NodeGraph_coo()
+        if ng.size > 0 and ng.shape[1] > 1:
+            data["NodeGraph"] = np.stack([ng.data, ng.row, ng.col]).transpose()
+        return data
+
+    def save(self, graph_npz_path: str, **kwargs) -> None:
+        self.save_graph(graph_npz_path, self, False, **kwargs)
+
+    def save_compressed(self, graph_npz_path: str, **kwargs) -> None:
+        self.save_graph(graph_npz_path, self, True, **kwargs)
+
+    def savetxt(self, graph_folder_path: str, format: str = "%.10g", **kwargs) -> None:
+        self.save_txt(graph_folder_path, self, format, **kwargs)
+
+    @staticmethod
+    def save_graph(graph_npz_path: str, g, compressed: bool = False, **kwargs) -> None:
+        (np.savez_compressed if compressed else np.savez)(graph_npz_path, **g.get_dict_data(), **kwargs)
+
+    @staticmethod
+    def save_txt(graph_folder_path: str, g, fmt: str = "%.10g", **kwargs) -> None:
+        """One ``<key>.txt`` a payload key in ``graph_folder_path`` (replaced
+        if it exists)."""
+        folder = _fresh_folder(graph_folder_path)
+        for key, value in g.get_dict_data().items():
+            np.savetxt(f"{folder}{key}.txt", value, fmt=fmt, **kwargs)
+
+    @staticmethod
+    def save_dataset(folder: str, glist: Sequence["GraphObject"], compressed=False, **kwargs) -> None:
+        """``g{i}.npz`` for each graph of ``glist`` in ``folder`` (replaced)."""
+        folder = _fresh_folder(folder)
+        for idx, g in enumerate(glist):
+            GraphObject.save_graph(f"{folder}g{idx}", g, compressed, **kwargs)
+
+    @staticmethod
+    def save_dataset_txt(folder: str, glist: Sequence["GraphObject"], **kwargs) -> None:
+        """A ``g{i}/`` text folder for each graph of ``glist`` in ``folder``."""
+        folder = _fresh_folder(folder)
+        for idx, g in enumerate(glist):
+            GraphObject.save_txt(f"{folder}g{idx}", g, **kwargs)
+
     @classmethod
-    def merge(cls, glist: Sequence["GraphObject"], focus: str, aggregation_mode: str):
+    def load(cls, graph_npz_path: str, focus: str, aggregation_mode: str, **kwargs):
+        if not graph_npz_path.endswith(".npz"):
+            graph_npz_path += ".npz"
+        data = dict(np.load(graph_npz_path, **kwargs))
+        _nodegraph_from_triples(data)
+        return cls(focus=focus, aggregation_mode=aggregation_mode, **data)
+
+    @classmethod
+    def load_txt(cls, graph_folder_path: str, focus: str, aggregation_mode: str, **kwargs):
+        if graph_folder_path[-1] != "/":
+            graph_folder_path += "/"
+        files = os.listdir(graph_folder_path)
+        data = {f.rsplit(".")[0]: np.loadtxt(graph_folder_path + f, ndmin=2, **kwargs) for f in files}
+        _nodegraph_from_triples(data)
+        for key in ("set_mask", "output_mask", "sample_weight"):
+            if key in data:
+                data[key] = data[key].reshape(-1)
+        return cls(focus=focus, aggregation_mode=aggregation_mode, **data)
+
+    @classmethod
+    def load_dataset(cls, folder: str, focus: str, aggregation_mode: str, **kwargs):
+        return [cls.load(f"{folder}/{g}", focus, aggregation_mode, **kwargs) for g in sorted(os.listdir(folder))]
+
+    @classmethod
+    def load_dataset_txt(cls, folder: str, focus: str, aggregation_mode: str, **kwargs):
+        return [cls.load_txt(f"{folder}/{g}", focus, aggregation_mode, **kwargs) for g in sorted(os.listdir(folder))]
+
+    @classmethod
+    def merge(cls, glist: Sequence["GraphObject"], focus: str, aggregation_mode: str, dtype="float32"):
         """Disjoint-union merge with arc index offsetting; NodeGraph becomes
-        the block diagonal of the per-graph readout columns."""
+        the block diagonal of the per-graph readout columns.  ``dtype`` is
+        accepted for the reference's signature; the arrays keep ``floatx``."""
         nodes_list, arcs_list, targets_list = [], [], []
         set_list, out_list, sw_list = [], [], []
         graph_of_node, nodegraph_weight = [], []
@@ -251,6 +378,21 @@ class CompositeGraphObject(GraphObject):
     def getTypeMask(self) -> np.ndarray:
         return self.type_mask.copy()
 
+    def CompositeAdjacencies_coo(self):
+        """One (N, N) scipy matrix a type: the Adjacency restricted to arcs
+        whose source node has the type (the per-type weights are already in
+        ``arcnode_weight``)."""
+        from scipy.sparse import coo_matrix
+
+        n = self.nodes.shape[0]
+        src = self.arcs[:, 0].astype(int)
+        dst = self.arcs[:, 1].astype(int)
+        mats = []
+        for t in range(self.num_types):
+            sel = self.type_mask[src, t]
+            mats.append(coo_matrix((self.arcnode_weight[sel], (src[sel], dst[sel])), shape=(n, n), dtype=self.dtype))
+        return mats
+
     def copy(self) -> "CompositeGraphObject":
         return CompositeGraphObject(
             nodes=self.nodes.copy(),
@@ -271,8 +413,14 @@ class CompositeGraphObject(GraphObject):
 
     __str__ = __repr__
 
+    def get_dict_data(self) -> dict:
+        data = super().get_dict_data()
+        data["type_mask"] = self.type_mask
+        data["dim_node_label"] = self.DIM_NODE_LABEL
+        return data
+
     @classmethod
-    def merge(cls, glist: Sequence["CompositeGraphObject"], focus: str, aggregation_mode: str):
+    def merge(cls, glist: Sequence["CompositeGraphObject"], focus: str, aggregation_mode: str, dtype="float32"):
         """The homogeneous merge plus the concatenated type masks; every
         graph must have the same per-type label widths.  The weights are
         rebuilt from the merged type mask (``composite_average`` counts per
@@ -298,3 +446,23 @@ class CompositeGraphObject(GraphObject):
         merged.graph_of_node = base.graph_of_node
         merged.nodegraph_weight = base.nodegraph_weight
         return merged
+
+
+def _fresh_folder(folder: str) -> str:
+    """``folder`` with a trailing slash, emptied and created anew."""
+    if folder[-1] != "/":
+        folder += "/"
+    if os.path.exists(folder):
+        shutil.rmtree(folder)
+    os.makedirs(folder)
+    return folder
+
+
+def _nodegraph_from_triples(data: dict) -> None:
+    """Replace a ``NodeGraph`` ``[value, row, col]`` triple array in
+    ``data`` by its scipy matrix, in place."""
+    triples = data.pop("NodeGraph", None)
+    if triples is not None:
+        from scipy.sparse import coo_matrix
+
+        data["NodeGraph"] = coo_matrix((triples[:, 0], (triples[:, 1].astype(int), triples[:, 2].astype(int))))

@@ -20,6 +20,7 @@ counterpart (a rank picks its own batch of every group), nor has
 import importlib
 
 _EXPORTS = {
+    "device_count": "gnnkeras_tpu_torch.parallel.mesh",
     "make_mesh": "gnnkeras_tpu_torch.parallel.mesh",
     "make_dp_train_step": "gnnkeras_tpu_torch.parallel.data_parallel",
     "DataParallelTrainer": "gnnkeras_tpu_torch.parallel.data_parallel",

@@ -28,6 +28,11 @@ import torch
 import torch.distributed as dist
 
 
+def device_count() -> int:
+    """The cards this process sees (the JAX package counts its devices)."""
+    return torch.cuda.device_count()
+
+
 def init_process_group(rank: Optional[int] = None, world_size: Optional[int] = None,
                        init_method: Optional[str] = None, timeout_s: float = 600.0) -> Tuple[int, int]:
     """Join the world group over gloo.  With no arguments the rank, world

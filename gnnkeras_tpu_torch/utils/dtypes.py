@@ -1,6 +1,8 @@
 """Global float dtype and device resolution.
 
-``floatx`` mirrors ``gnnkeras_tpu.utils.dtypes.floatx`` (float32).
+``floatx`` mirrors ``gnnkeras_tpu.utils.dtypes.floatx`` (float32 unless
+``set_floatx`` changes it); ``torch_floatx`` is the same type as a torch
+dtype.
 ``resolve_device`` is the port's one gate onto the card: every entry point
 (``from_graph_object``, ``GraphModel.build``, ``Predictor``) passes its
 ``device=`` argument through it, so asking for CUDA on a machine without a
@@ -17,6 +19,13 @@ _FLOATX = np.float32
 
 def floatx():
     return _FLOATX
+
+
+def set_floatx(dtype) -> None:
+    """Set the host float type of graphs built from now on (and with it
+    ``torch_floatx``)."""
+    global _FLOATX
+    _FLOATX = np.dtype(dtype).type
 
 
 def torch_floatx() -> torch.dtype:

@@ -20,6 +20,10 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "gnnkeras_tpu" or m.startswith("gnnkeras_tpu."))
+# nothing is built and no TensorFlow is imported by importing the modules
+from gnnkeras_tpu_torch import native
+bad += ["tensorflow"] if "tensorflow" in sys.modules else []
+bad += ["native build"] if native._tried else []
 print(len(names), ",".join(bad))
 """
 
@@ -39,7 +43,8 @@ def test_port_imports_no_jax():
         "data.sequencers", "data.transductive", "data.prefetch", "data.mutag", "training.fit_loop",
         "training.checkpoint", "training.calibrate", "training.serial", "training.callbacks",
         "parallel.data_parallel", "parallel.packed", "parallel.tensor_parallel", "parallel.hybrid",
-        "parallel.multihost", "tools.multihost_sim")}
+        "parallel.multihost", "tools.multihost_sim", "cli", "config", "graph.tensor_io", "utils.profiling",
+        "utils.keras_interop", "tools.bench", "tools.starter", "tools.starter_composite", "tools.serve")}
     assert bad == [], f"the port pulled in {bad}"
 
 
