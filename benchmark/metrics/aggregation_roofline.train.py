@@ -1,0 +1,8 @@
+"""``aggregation_roofline.train``: the aggregation kernels' share of their
+roofline in a training cell (``aggregation_roofline.roofline_share``)."""
+
+from benchmark.metrics.aggregation_roofline import roofline_share
+
+
+def read(record):
+    return roofline_share(record, "train")
